@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (each exits non-zero on failure; nothing is caught and passed over):
+
+1. Device: a CUDA card must be present; prints the card's name and power
+   limit (nvidia-smi) and turns TF32 off for matmul and cuDNN.
+2. Build: compiles ops/csrc/fused_elbo.cu for sm_90a (cached by content).
+3. Kernels against their plain PyTorch versions on the card, at the main
+   path's shapes and at ragged ones, with times (CUDA events, median of
+   30 loops of 20 back-to-back calls queued behind a device sleep, so host
+   launch gaps are not counted; inputs are L2-warm).
+4. The main path with the kernels: the default ExperimentConfig (simple_tag
+   30 adversaries + 10 good agents + 20 obstacles, batch 128, bf16,
+   full widths) with model.use_pallas=true for 2 epochs, through
+   Experiment(...).setup().run(); the launch counts must be K1 = K2 =
+   train_num per epoch and K3 = 2 * train_num per epoch.
+5. The same config on plain ops (use_pallas=false) for 1 epoch; no kernel
+   may launch.
+6. One train step by both routes from the same state, batch and generator
+   state; the losses must agree within rtol 1e-4.
+7. The kernel list as one JSON line, the card, and the result line.
+"""
+
+import copy
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def main() -> None:
+    import torch
+
+    # ------------------------------------------------------------ 1. device
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    try:
+        from mfvae_tpu_torch.config import ExperimentConfig
+        from mfvae_tpu_torch.data.transitions import vae_batch_from_grouped
+        from mfvae_tpu_torch.ops import fused_elbo as ops
+        from mfvae_tpu_torch.training.experiment import Experiment
+        from mfvae_tpu_torch.training.trainer import make_train_step
+        from mfvae_tpu_torch.utils import kernel_build
+    except ImportError as e:
+        fail(f"the mfvae_tpu_torch package is not importable beside this script ({e})")
+    import torch.nn.functional as F
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"[1] card: {smi}")
+    print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    # ------------------------------------------------------------- 2. build
+    t0 = time.perf_counter()
+    lib = kernel_build.build(ops.SOURCE)
+    ops._lib()
+    print(f"[2] built {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---------------------------------------------------- 3. kernels vs plain
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def median_ms(fn, inner=20, reps=30):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda._sleep(5_000_000)  # keep the device busy while the host queues
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / inner)
+        return statistics.median(times)
+
+    def allclose(a, b, rtol, atol):
+        return bool(torch.allclose(a, b, rtol=rtol, atol=atol)), float((a - b).abs().max())
+
+    def bound(nbytes, nops):
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    kernels = {}
+    b, a, f = 128, 40, 64
+    for shape in ((b, a, f), (3, 7, f)):
+        mu, lv, eps = randn(*shape), randn(*shape), randn(*shape)
+        z, kl = ops.fused_reparam_kl(mu, lv, eps)
+        zp, klp = ops._fused_reparam_kl_plain(mu, lv, eps)
+        ok_z, err_z = allclose(z, zp, 1e-6, 1e-6)
+        ok_kl, err_kl = allclose(kl, klp, 1e-5, 1e-6)
+        print(f"[3] K1 {list(shape)}: z max|err| {err_z:.3e} (rtol 1e-6, atol 1e-6) "
+              f"kl max|err| {err_kl:.3e} (rtol 1e-5: another sum order)")
+        check(ok_z and ok_kl, f"K1 disagrees with its plain version at {shape}")
+
+        gz, gkl = randn(*shape), randn(*shape[:-1])
+        rows = (mu.reshape(-1, f), lv.reshape(-1, f), eps.reshape(-1, f), gz.reshape(-1, f), gkl.reshape(-1))
+        dmu, dlv = ops._reparam_kl_bwd_cuda(*rows)
+        dmu_p, dlv_p = ops._bwd_rows_plain(*rows)
+        ok_mu, err_mu = allclose(dmu, dmu_p, 1e-6, 1e-6)
+        ok_lv, err_lv = allclose(dlv, dlv_p, 1e-6, 1e-6)
+        m1, l1 = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+        m2, l2 = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+        ga = torch.autograd.grad(ops.fused_reparam_kl(m1, l1, eps), (m1, l1), (gz, gkl))
+        gb = torch.autograd.grad(ops._fused_reparam_kl_plain(m2, l2, eps), (m2, l2), (gz, gkl))
+        ok_ag_mu, err_ag_mu = allclose(ga[0], gb[0], 1e-6, 1e-6)
+        ok_ag_lv, err_ag_lv = allclose(ga[1], gb[1], 1e-5, 1e-5)
+        print(f"[3] K2 {list(shape)}: vs the plain K2 formula dmu {err_mu:.3e} dlv {err_lv:.3e} "
+              f"(rtol 1e-6, atol 1e-6); via autograd.grad vs the plain function's autograd "
+              f"dmu {err_ag_mu:.3e} (1e-6) dlv {err_ag_lv:.3e} (rtol/atol 1e-5: the chain "
+              f"rule rounds the two dlv terms in another order)")
+        check(ok_mu and ok_lv and ok_ag_mu and ok_ag_lv, f"K2 disagrees with its plain version at {shape}")
+        if shape == (b, a, f):
+            r = b * a
+            k1_args = rows[:3]
+            k2_args = rows
+            kernels["K1"] = dict(
+                max_abs_err=max(err_z, err_kl),
+                ms=median_ms(lambda: ops._reparam_kl_fwd_cuda(*k1_args)),
+                plain_ms=median_ms(lambda: ops._fwd_rows_plain(*k1_args)),
+                bytes=4 * (3 * r * f + r * f + r), ops=11 * r * f,
+            )
+            kernels["K2"] = dict(
+                max_abs_err=max(err_mu, err_lv),
+                ms=median_ms(lambda: ops._reparam_kl_bwd_cuda(*k2_args)),
+                plain_ms=median_ms(lambda: ops._bwd_rows_plain(*k2_args)),
+                bytes=4 * (4 * r * f + r + 2 * r * f), ops=12 * r * f,
+            )
+
+    obs_total = 30 * 142 + 10 * 140
+    for n in (b * obs_total, b * a, 1001):
+        for delta in (1.0, 0.5):
+            x, y = 2 * randn(n), randn(n)
+            h = ops.huber_mean(x, y, delta)
+            hp = ops._huber_mean_plain(x, y, delta)
+            ok, err = allclose(h, hp, 1e-5, 0.0)
+            hl = F.huber_loss(x, y, reduction="mean", delta=delta)
+            print(f"[3] K3 n={n} delta={delta}: {h.item():.7f} plain {hp.item():.7f} "
+                  f"F.huber_loss {hl.item():.7f} |err| {err:.3e} (rtol 1e-5: another sum order)")
+            check(ok, f"K3 disagrees with its plain version at n={n}, delta={delta}")
+            if delta == 1.0 and n in (b * obs_total, b * a):
+                entry = dict(
+                    max_abs_err=err,
+                    ms=median_ms(lambda: ops._huber_mean_cuda(x, y, delta)),
+                    plain_ms=median_ms(lambda: ops._huber_mean_plain(x, y, delta)),
+                    library_ms=median_ms(lambda: F.huber_loss(x, y, reduction="mean", delta=delta)),
+                    bytes=4 * (2 * n + 1), ops=8 * n,
+                )
+                kernels["K3" if n == b * obs_total else "K3_reward"] = entry
+    torch.cuda.synchronize()
+    for name, k in kernels.items():
+        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+        lib_us = "-" if k.get("library_ms") is None else f"{1e3 * k['library_ms']:.2f} us"
+        print(f"[3] {name}: kernel {1e3 * k['ms']:.2f} us  plain {1e3 * k['plain_ms']:.2f} us  "
+              f"library {lib_us}  bound {1e3 * k['bound_ms']:.2f} us ({k['bound_by']})", flush=True)
+
+    # ------------------------------------------- 4./5. the main path, both routes
+    def main_path(use_pallas: bool, epochs: int, tmp: str):
+        cfg = ExperimentConfig()  # = examples/reference_parity.yaml
+        cfg.model.use_pallas = use_pallas
+        cfg.train.epoch_num = epochs
+        cfg.train.log_dir = f"{tmp}/results"
+        cfg.train.checkpoint_dir = f"{tmp}/ckpt"
+        exp = Experiment(cfg).setup()
+        ops.reset_launch_counts()
+        result = exp.run()
+        torch.cuda.synchronize()
+        return exp, result, dict(ops.LAUNCHES)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp, res, launches = main_path(True, 2, f"{tmp}/pallas")
+        tn = exp.cfg.train.train_num
+        want = {"reparam_kl_fwd": 2 * tn, "reparam_kl_bwd": 2 * tn, "huber_mean": 4 * tn}
+        main_launches = launches
+        wall = [round(1e3 * s, 3) for s in res["epoch_wall_s"]]
+        print(f"[4] use_pallas=true, 2 epochs: loss_train {res['loss_train']:.6f} "
+              f"loss_test {res['loss_test']:.6f} epoch wall ms {wall} launches {launches}")
+        check(launches == want, f"launch counts {launches}, expected {want}")
+        check(math.isfinite(res["loss_train"]) and math.isfinite(res["loss_test"]), "non-finite losses")
+        del exp
+
+        exp, res, launches = main_path(False, 1, f"{tmp}/plain")
+        wall_plain = [round(1e3 * s, 3) for s in res["epoch_wall_s"]]
+        print(f"[5] use_pallas=false, 1 epoch: loss_train {res['loss_train']:.6f} "
+              f"loss_test {res['loss_test']:.6f} epoch wall ms {wall_plain} launches {launches}")
+        check(not any(launches.values()), f"plain route launched kernels: {launches}")
+        check(math.isfinite(res["loss_train"]) and math.isfinite(res["loss_test"]), "non-finite losses")
+
+        # ----------------------------------------- 6. one step by both routes
+        carry = exp.carry
+        spec = exp.spec
+        batch = vae_batch_from_grouped(
+            spec, exp.buffer.sample(carry.buffer_state, torch.Generator(device=dev).manual_seed(1)).experience
+        )
+        outs = {}
+        for use_pallas in (False, True):
+            state = copy.deepcopy(carry.train_state)
+            gen = torch.Generator(device=dev).manual_seed(2)
+            step = make_train_step(exp.cfg.loss, use_pallas=use_pallas)
+            _, o = step(state, batch, gen)
+            outs[use_pallas] = [float(x) for x in o]
+            if use_pallas:
+                recon_s, recon_r, _ = state.model.fused_call(batch.inputs, None, gen)
+                check(tuple(recon_s.shape) == (128, sum(spec.obs_dims)) and tuple(recon_r.shape) == (128, 40),
+                      f"output shapes {tuple(recon_s.shape)}, {tuple(recon_r.shape)}")
+                check(bool(torch.isfinite(recon_s).all() and torch.isfinite(recon_r).all()), "non-finite outputs")
+        for name, p, q in zip(("loss", "s_loss", "r_loss", "kl_loss"), outs[False], outs[True]):
+            print(f"[6] {name}: plain {p:.7f} kernels {q:.7f} rel {abs(p - q) / abs(p):.3e}")
+            check(abs(p - q) <= 1e-4 * abs(p), f"{name} differs between the routes beyond rtol 1e-4")
+        del exp, carry
+
+    # ------------------------------------------------------ 7. the kernel list
+    src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
+    table = [
+        ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
+        ("K2 fused_reparam_kl bwd", "K2", "mfvae_tpu/ops/fused_elbo.py:60", "reparam_kl_bwd"),
+        ("K3 huber_mean", "K3", "mfvae_tpu/ops/fused_elbo.py:164", "huber_mean"),
+    ]
+    line = []
+    for name, key, replaces, counter in table:
+        k = kernels[key]
+        line.append({
+            "name": name, "ok": True, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_launches[counter], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms"),
+        })
+    rk = kernels["K3_reward"]
+    print(f"[7] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+          f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms")
+    print(f"[7] per-epoch wall ms: use_pallas=true {wall}, use_pallas=false {wall_plain}")
+    print(smi)
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,47 @@
+"""Entry point, with ``main.py``'s argument contract plus a device flag.
+
+    python -m mfvae_tpu_torch                        # default config, on the card
+    python -m mfvae_tpu_torch cfg.yaml a.b=c ...     # YAML + dotted overrides
+    python -m mfvae_tpu_torch ... --device cpu       # on the CPU, only when asked
+"""
+
+import sys
+
+from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides, load_config
+
+
+def parse_args(argv):
+    """-> (ExperimentConfig, device)."""
+    cfg_path = None
+    overrides = []
+    device = "cuda"
+    args = list(argv)
+    while args:
+        a = args.pop(0)
+        if a == "--device":
+            if not args:
+                raise SystemExit("--device needs a value (cuda, cuda:N or cpu)")
+            device = args.pop(0)
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        elif "=" in a:
+            overrides.append(a)
+        elif a.endswith((".yaml", ".yml")):
+            cfg_path = a
+        else:
+            raise SystemExit(f"unrecognized argument {a!r}")
+    cfg = load_config(cfg_path) if cfg_path else ExperimentConfig()
+    if overrides:
+        apply_overrides(cfg, overrides)
+    return cfg, device
+
+
+def main():
+    cfg, device = parse_args(sys.argv[1:])
+    from mfvae_tpu_torch.training.experiment import run_experiment
+
+    print(run_experiment(cfg, device))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,40 @@
+"""Bridge from the JAX package's MAVAE parameters to the port's.
+
+The port's layers keep flax's layouts and leaf names (``layers.py``), so a
+flax path ``encoders_0/fc1/kernel`` is the port's ``encoders.0.fc1.kernel``:
+only flax's numbered submodule lists differ.  The input is the JAX
+parameter tree as nested dicts of numpy arrays (``jax.device_get`` of
+``variables`` or of ``variables["params"]``); this module never imports JAX.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_LIST_MODULE = re.compile(r"^(encoders|action_encoders)_(\d+)$")
+
+
+def _flatten(tree: Dict[str, Any], prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX parameter tree -> a state_dict for ``MAVAE.load_state_dict``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, leaf in _flatten(tree):
+        parts = []
+        for p in path:
+            m = _LIST_MODULE.match(p)
+            parts.extend([m.group(1), m.group(2)] if m else [p])
+        out[".".join(parts)] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return out

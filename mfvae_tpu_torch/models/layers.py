@@ -1,0 +1,146 @@
+"""Building-block layers (mirror of ``mfvae_tpu/models/layers.py``).
+
+Parameters keep flax's layouts and names — a dense kernel is [in, out], a
+stacked kernel [A, in, out], an embedding table ``embedding`` — so the
+JAX parameter tree maps onto these modules by name alone
+(``models/convert.py``).  Initialization is set explicitly to flax's:
+kernels are lecun-normal (a normal truncated at ±2σ, scaled by 1/fan_in
+with fan_in per agent slice for stacked kernels), biases zero, embeddings
+N(0, 1).  torch's own ``nn.Linear`` default is neither.
+
+``dtype`` is the compute dtype: inputs and kernels are cast to it before
+each product, and parameters stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+# the stddev of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None):
+    """flax ``lecun_normal``: variance_scaling(1, fan_in, truncated_normal)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def _param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in the compute dtype."""
+
+    def __init__(self, in_dim: int, features: int, dtype=torch.float32, device=None,
+                 generator=None, kernel_init: str = "lecun"):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = _param((in_dim, features), device)
+        self.bias = _param((features,), device)
+        with torch.no_grad():
+            if kernel_init == "ones":
+                self.kernel.fill_(1.0)
+            else:
+                lecun_normal_(self.kernel, in_dim, generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class MLP(nn.Module):
+    """ReLU MLP: hidden widths ``fc0..``, then a linear head ``out``."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
+                 dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.n_hidden = len(hidden)
+        widths = [in_dim, *hidden]
+        for i, h in enumerate(hidden):
+            setattr(self, f"fc{i}", Dense(widths[i], h, dtype, device, generator))
+        self.out = Dense(widths[-1], out_dim, dtype, device, generator)
+
+    def forward(self, x):
+        for i in range(self.n_hidden):
+            x = torch.relu(getattr(self, f"fc{i}")(x))
+        return self.out(x)
+
+
+class Embedding(nn.Module):
+    """N(0, 1)-initialized embedding table."""
+
+    def __init__(self, num_embeddings: int, features: int, dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = _param((num_embeddings, features), device)
+        with torch.no_grad():
+            nn.init.normal_(self.embedding, 0.0, 1.0, generator=generator)
+
+    def forward(self, indices):
+        return self.embedding[indices.long()].to(self.dtype)
+
+
+class StackedDense(nn.Module):
+    """A dense layer with a leading stack (agent) axis on its parameters:
+    [B, A, in] -> [B, A, out] as one batched product
+    (``einsum bai,aio->bao``)."""
+
+    def __init__(self, stack: int, in_dim: int, features: int, dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = _param((stack, in_dim, features), device)
+        self.bias = _param((stack, features), device)
+        with torch.no_grad():
+            for a in range(stack):
+                lecun_normal_(self.kernel[a], in_dim, generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        y = torch.einsum("bai,aio->bao", x.to(self.dtype), self.kernel.to(self.dtype))
+        return y + self.bias.to(self.dtype)[None, :, :]
+
+
+class StackedMLP(nn.Module):
+    """ReLU MLP over [B, A, in] with independent per-A parameters."""
+
+    def __init__(self, stack: int, in_dim: int, hidden: Sequence[int], out_dim: int,
+                 dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.n_hidden = len(hidden)
+        widths = [in_dim, *hidden]
+        for i, h in enumerate(hidden):
+            setattr(self, f"fc{i}", StackedDense(stack, widths[i], h, dtype, device, generator))
+        self.out = StackedDense(stack, widths[-1], out_dim, dtype, device, generator)
+
+    def forward(self, x):
+        for i in range(self.n_hidden):
+            x = torch.relu(getattr(self, f"fc{i}")(x))
+        return self.out(x)
+
+
+class StackedEmbedding(nn.Module):
+    """Per-stack embedding tables [A, num_embeddings, features]: index i of
+    stack a returns table[a, i].  The JAX layer computes it as a one-hot
+    product; a gather returns the same values."""
+
+    def __init__(self, stack: int, num_embeddings: int, features: int,
+                 dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = _param((stack, num_embeddings, features), device)
+        with torch.no_grad():
+            nn.init.normal_(self.embedding, 0.0, 1.0, generator=generator)
+
+    def forward(self, indices):
+        # indices: [B, A] integer
+        stack = torch.arange(self.embedding.shape[0], device=indices.device)
+        return self.embedding[stack[None, :], indices.long()].to(self.dtype)

@@ -1,0 +1,241 @@
+"""Experiment driver (mirror of ``mfvae_tpu/training/experiment.py``).
+
+    exp = Experiment(cfg)            # on the CUDA card
+    exp = Experiment(cfg, "cpu")     # on the CPU, only when asked
+    result = exp.setup().run()
+
+The device is a constructor argument, not a config field, so the config
+tree stays field-for-field equal to the JAX package's.  Without a card,
+``device="cuda"`` raises rather than carrying on on the CPU.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from mfvae_tpu_torch.config import ExperimentConfig, save_config
+from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer, tree_leaves, tree_map
+from mfvae_tpu_torch.data.transitions import GroupedTransition
+from mfvae_tpu_torch.envs.mpe import MPEState, StackedObs, make
+from mfvae_tpu_torch.envs.spaces import get_space_size
+from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, zero_actions_grouped
+from mfvae_tpu_torch.rng import make_streams
+from mfvae_tpu_torch.training.checkpoint import CheckpointManager, NullCheckpointManager
+from mfvae_tpu_torch.training.metrics import MetricsLogger
+from mfvae_tpu_torch.training.trainer import (
+    EnvCarry,
+    EpochCarry,
+    create_train_state,
+    make_epoch_fn,
+    stacked_to_grouped,
+)
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run the port on the CPU"
+        )
+    return dev
+
+
+def build_spec(env) -> AgentSpec:
+    """Dims from the live env: Discrete -> n, Box -> flat shape."""
+    obs_dim = {a: env.obs_dim(a) for a in env.agents}
+    act_dim = {a: get_space_size(env.action_space(a)) for a in env.agents}
+    return AgentSpec.from_dicts(env.agents, obs_dim, act_dim)
+
+
+def _refuse_unported(cfg: ExperimentConfig) -> None:
+    t = cfg.train
+    off_path = {
+        f"train.collect_policy={t.collect_policy!r}": (t.collect_policy != "random", "M11"),
+        "train.n_envs>1": (t.n_envs > 1, "M11"),
+        "train.unroll_steps>1": (t.unroll_steps > 1, "M12"),
+        "env.backend='host'": (cfg.env.backend == "host", "M18"),
+        "mesh.enable": (cfg.mesh.enable, "M17"),
+        "train.profile_epochs": (t.profile_epochs > 0, "M20"),
+        "train.debug_nans": (t.debug_nans, "M20"),
+        "train.bug_compat_rng": (t.bug_compat_rng, "M20"),
+    }
+    for name, (on, item) in off_path.items():
+        if on:
+            raise NotImplementedError(
+                f"{name} is not ported to the PyTorch package yet (ROADMAP {item})"
+            )
+    # train.mode and the model/loss options are refused where they are
+    # used (make_train_step, MAVAE); fused_epoch, epochs_per_dispatch and
+    # eval_vmap shape only the JAX package's XLA program and change nothing
+
+
+class Experiment:
+    def __init__(self, cfg: ExperimentConfig, device="cuda"):
+        self.cfg = cfg
+        cfg.validate()
+        _refuse_unported(cfg)
+        self.device = resolve_device(device)
+        self.env = make(
+            cfg.env.name,
+            device=self.device,
+            num_good_agents=cfg.env.num_good_agents,
+            num_adversaries=cfg.env.num_adversaries,
+            num_obs=cfg.env.num_obs,
+            max_steps=cfg.env.max_steps,
+            discrete_actions=cfg.env.discrete_actions,
+        )
+        self.spec = build_spec(self.env)
+        self.buffer = ItemBuffer(
+            max_length=cfg.buffer.max_size,
+            min_length=cfg.buffer.min_size,
+            sample_batch_size=cfg.buffer.batch_size,
+        )
+        self.test_buffer = ItemBuffer(
+            max_length=cfg.buffer.max_size,
+            min_length=cfg.buffer.min_size,
+            sample_batch_size=cfg.buffer.batch_size,
+        )
+        self.streams = make_streams(cfg.train.seed, device=self.device)
+        self.logger: Optional[MetricsLogger] = None
+        self.ckpt = None
+        self._epoch_fn = None
+        self.carry: Optional[EpochCarry] = None
+        self.start_epoch = 0
+
+    # ------------------------------------------------------------ lifecycle
+    def setup(self):
+        cfg = self.cfg
+        obs, env_state = self.env.reset_stacked(self.streams["reset"])
+        example = self._example_transition(obs, env_state)
+        model = MAVAE.from_config(
+            cfg.model, self.spec, device=self.device, generator=self.streams["model"]
+        )
+        self.carry = EpochCarry(
+            train_state=create_train_state(model, cfg.train),
+            buffer_state=self.buffer.init(example),
+            test_buffer_state=self.test_buffer.init(example),
+            env=EnvCarry(obs=obs, state=env_state),
+        )
+        self._epoch_fn = make_epoch_fn(
+            self.env, self.spec, self.buffer, self.test_buffer, cfg, self.streams
+        )
+        self.logger = MetricsLogger(cfg.train.log_dir, cfg.train.run_name)
+        # the resolved config beside the run's metrics reproduces the run
+        save_config(cfg, str(self.logger.run_dir / "config.yaml"))
+        self.ckpt = (
+            CheckpointManager(cfg.train.checkpoint_dir)
+            if cfg.train.checkpoint_dir
+            else NullCheckpointManager()
+        )
+        if cfg.train.resume:
+            self._try_resume()
+        return self
+
+    def _example_transition(self, obs, env_state) -> GroupedTransition:
+        zero_actions = torch.zeros(self.spec.n_agents, dtype=torch.int32, device=self.device)
+        next_obs, _, rewards, _, _ = self.env.step_stacked(env_state, zero_actions)
+        return GroupedTransition(
+            obs=stacked_to_grouped(self.spec, obs),
+            actions=zero_actions_grouped(self.spec, None, self.device),
+            next_obs=stacked_to_grouped(self.spec, next_obs),
+            rewards=rewards,
+            done=torch.zeros((), device=self.device),
+        )
+
+    # ----------------------------------------------------------- checkpoint
+    def _payload(self, epoch: int) -> dict:
+        c = self.carry
+        ts = c.train_state
+
+        def buffer(b: BufferState):
+            return {"data": tree_leaves(b.data), "cursor": b.cursor, "size": b.size}
+
+        return {
+            "epoch": epoch,
+            "model": ts.model.state_dict(),
+            "optimizer": ts.optimizer.state_dict(),
+            "step": ts.step,
+            "buffer": buffer(c.buffer_state),
+            "test_buffer": buffer(c.test_buffer_state),
+            "env_obs": list(c.env.obs),
+            "env_state": list(c.env.state),
+            "rng": {name: g.get_state() for name, g in self.streams.items()},
+        }
+
+    def _save(self, epoch: int):
+        self.ckpt.save(epoch, self._payload(epoch))
+
+    def _try_resume(self):
+        step = self.ckpt.latest_step()
+        if step is None:
+            return
+        p = self.ckpt.restore(step)
+        c = self.carry
+        ts = c.train_state
+        ts.model.load_state_dict(p["model"])
+        ts.optimizer.load_state_dict(p["optimizer"])
+        ts.step = int(p["step"])
+
+        def buffer(b: BufferState, saved) -> BufferState:
+            leaves = iter(saved["data"])
+            data = tree_map(lambda buf: buf.copy_(next(leaves)), b.data)
+            return BufferState(data=data, cursor=int(saved["cursor"]), size=int(saved["size"]))
+
+        def to_dev(xs):
+            return [x.to(self.device) for x in xs]
+
+        self.carry = EpochCarry(
+            train_state=ts,
+            buffer_state=buffer(c.buffer_state, p["buffer"]),
+            test_buffer_state=buffer(c.test_buffer_state, p["test_buffer"]),
+            env=EnvCarry(
+                obs=StackedObs(*to_dev(p["env_obs"])),
+                state=MPEState(*to_dev(p["env_state"])),
+            ),
+        )
+        for name, g in self.streams.items():
+            g.set_state(p["rng"][name])
+        self.start_epoch = int(p["epoch"]) + 1
+        print(f"resumed from checkpoint step {step} (epoch {self.start_epoch})")
+
+    # ----------------------------------------------------------------- run
+    def run(self) -> dict:
+        """Train ``train.epoch_num`` epochs.  Returns the last epoch's
+        ``loss_train``/``loss_test``, the total ``wall_s`` and the wall
+        seconds of each epoch (``epoch_wall_s``, each ending in a device
+        sync when the epoch's losses are read)."""
+        if self.carry is None:
+            self.setup()
+        cfg = self.cfg
+        t0 = time.time()
+        last: dict = {}
+        epoch_wall = []
+        epoch = self.start_epoch - 1
+        for epoch in range(self.start_epoch, cfg.train.epoch_num):
+            t_epoch = time.perf_counter()
+            self.carry, metrics = self._epoch_fn(self.carry)
+            train = type(metrics.train)(*(float(x) for x in metrics.train))
+            test = type(metrics.test)(*(float(x) for x in metrics.test))
+            epoch_wall.append(time.perf_counter() - t_epoch)
+            self.logger.losses(train, epoch, "Train")
+            self.logger.losses(test, epoch, "Test")
+            last = {"epoch": epoch, "loss_train": train.loss, "loss_test": test.loss}
+            if cfg.train.checkpoint_every and (epoch + 1) % cfg.train.checkpoint_every == 0:
+                self._save(epoch)
+        if epoch >= 0 and self.ckpt.latest_step() != epoch:
+            self._save(epoch)
+        self.ckpt.wait()
+        self.logger.flush()
+        last["wall_s"] = time.time() - t0
+        last["epoch_wall_s"] = epoch_wall
+        return last
+
+
+def run_experiment(cfg: ExperimentConfig, device="cuda") -> dict:
+    """The JAX package's dispatcher; only the on-device backend is ported
+    (env.backend='host' is refused, ROADMAP M18)."""
+    return Experiment(cfg, device).setup().run()

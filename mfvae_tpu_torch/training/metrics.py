@@ -1,0 +1,52 @@
+"""Metrics sink with the JAX package's tag names (Loss/Train,
+Loss/State_Train, Loss/Reward_Train, Loss/KL_Train and the *_Test
+variants).  JSONL always; TensorBoard too where tensorboardX imports."""
+
+from __future__ import annotations
+
+import json
+import time
+from datetime import datetime
+from pathlib import Path
+
+try:
+    from tensorboardX import SummaryWriter
+
+    _HAVE_TBX = True
+except ImportError:  # pragma: no cover
+    _HAVE_TBX = False
+
+
+class MetricsLogger:
+    def __init__(self, log_dir: str, run_name: str = ""):
+        if not run_name:
+            run_name = f"run_{datetime.now().strftime('%Y-%m-%d-%H:%M:%S')}"
+        self.run_dir = Path(log_dir) / run_name
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self._tb = SummaryWriter(str(self.run_dir)) if _HAVE_TBX else None
+        self._jsonl = open(self.run_dir / "metrics.jsonl", "a")
+
+    def scalar(self, tag: str, value: float, step: int):
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
+        self._jsonl.write(
+            json.dumps({"tag": tag, "value": float(value), "step": int(step), "ts": time.time()})
+            + "\n"
+        )
+
+    def losses(self, outs, step: int, suffix: str = "Train"):
+        """Write the four per-phase tags of a LossOutputs of floats."""
+        self.scalar(f"Loss/{suffix}", float(outs.loss), step)
+        self.scalar(f"Loss/State_{suffix}", float(outs.s_loss), step)
+        self.scalar(f"Loss/Reward_{suffix}", float(outs.r_loss), step)
+        self.scalar(f"Loss/KL_{suffix}", float(outs.kl_loss), step)
+
+    def flush(self):
+        if self._tb is not None:
+            self._tb.flush()
+        self._jsonl.flush()
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
+        self._jsonl.close()

@@ -1,0 +1,309 @@
+"""Train/test steps and the epoch program (mirror of
+``mfvae_tpu/training/trainer.py`` in Adam mode).
+
+PyTorch runs eagerly, so the JAX package's scans become Python loops and
+its vmapped eval becomes one forward over every eval batch at once (the
+eval steps are independent given the parameters, and each step's loss is a
+mean over an equal-sized batch, so the mean of the per-step means is the
+mean over the joined batch).  The train state is updated in place: one
+forward and one backward per train step, then one Adam update.
+
+Each epoch: collect ``sample_num`` random-action env steps into the train
+buffer, run ``train_num`` train steps on uniform samples, collect
+``sample_num`` more steps into the test buffer, evaluate ``test_num``
+batches.  Noise comes from named generators (``rng.make_streams``):
+actions from "act", env resets from "reset", buffer samples from "sample",
+train-step eps from "train", eval samples and eps from "eval".
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from mfvae_tpu_torch.config import ExperimentConfig, LossConfig, TrainConfig
+from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer
+from mfvae_tpu_torch.data.transitions import GroupedTransition, VaeBatch, vae_batch_from_grouped
+from mfvae_tpu_torch.models.losses import LossOutputs, combine_losses, elbo_losses, refuse_unported
+from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec
+from mfvae_tpu_torch.ops.fused_elbo import huber_mean
+
+
+def _refuse_mode(mode: str) -> None:
+    if mode not in ("Adam", "ART", "POPART"):
+        raise ValueError(f"unknown train.mode {mode!r}")
+    if mode != "Adam":
+        raise NotImplementedError(
+            f"train.mode={mode!r} (PopArt/ART) is not ported yet (ROADMAP M9)"
+        )
+
+
+def make_lr(cfg: TrainConfig) -> Callable[[int], float]:
+    """step -> learning rate, with optax's schedule semantics (the count
+    is the number of updates already applied)."""
+    lr, t_max, floor = cfg.lr, cfg.lr_t_max, cfg.lr * cfg.lr_min_ratio
+    if cfg.lr_schedule == "constant":
+        return lambda step: lr
+    if cfg.lr_schedule == "cosine":
+        # optax.cosine_decay_schedule(lr, decay_steps=t_max, alpha=ratio)
+        def cosine(step):
+            frac = min(step, t_max) / t_max
+            return lr * ((1 - cfg.lr_min_ratio) * 0.5 * (1 + math.cos(math.pi * frac)) + cfg.lr_min_ratio)
+
+        return cosine
+    if cfg.lr_schedule == "cosine_periodic":
+        # CosineAnnealingLR's closed form, which keeps oscillating
+        t = max(t_max, 1)
+        return lambda step: floor + (lr - floor) * (1.0 + math.cos(math.pi * step / t)) / 2.0
+    if cfg.lr_schedule == "warmup_cosine":
+        # optax.warmup_cosine_decay_schedule(0, lr, warmup, decay, end)
+        warmup = max(cfg.lr_warmup_steps, 1)
+        decay = max(t_max, cfg.lr_warmup_steps + 1)
+
+        def warmup_cosine(step):
+            if step < warmup:
+                return lr * step / warmup
+            frac = min(step - warmup, decay - warmup) / (decay - warmup)
+            return floor + (lr - floor) * 0.5 * (1 + math.cos(math.pi * frac))
+
+        return warmup_cosine
+    raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+
+
+@dataclass
+class TrainState:
+    """The model, its Adam optimizer and the count of updates applied."""
+
+    model: MAVAE
+    optimizer: torch.optim.Optimizer
+    lr_fn: Callable[[int], float]
+    grad_clip: float = 0.0
+    step: int = 0
+
+
+def create_train_state(model: MAVAE, cfg: TrainConfig) -> TrainState:
+    # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8, the same update rule
+    lr_fn = make_lr(cfg)
+    opt = torch.optim.Adam(model.parameters(), lr=lr_fn(0), betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(model=model, optimizer=opt, lr_fn=lr_fn, grad_clip=cfg.grad_clip)
+
+
+def _kl_scale(loss_cfg: LossConfig, step: int) -> Optional[float]:
+    if loss_cfg.kl_anneal_steps and loss_cfg.kl_anneal_steps > 0:
+        return min(1.0, step / loss_cfg.kl_anneal_steps)
+    return None
+
+
+def _clip_by_global_norm(params, max_norm: float) -> None:
+    """optax.clip_by_global_norm: scale every gradient by max_norm / norm
+    when the global norm exceeds max_norm (no host sync)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(factor)
+
+
+def make_train_step(
+    loss_cfg: LossConfig,
+    mode: str = "Adam",
+    use_pallas: bool = False,
+    s_col_weight=None,
+) -> Callable:
+    """(state, batch: VaeBatch, generator=None, eps=None) -> (state,
+    LossOutputs).  The state is updated in place and returned.
+
+    ``use_pallas`` routes the forward through ``MAVAE.fused_call`` (kernels
+    K1/K2) and the reconstruction losses through ``huber_mean`` (K3), under
+    the JAX package's guards.  Both routes draw eps from ``generator`` in
+    the same way, or take ``eps`` [B, A, F] (grouped order) as given."""
+    _refuse_mode(mode)
+    if use_pallas:
+        if loss_cfg.free_bits != 0.0:
+            raise ValueError("the use_pallas path has no free-bits support")
+        if not loss_cfg.use_huber:
+            raise ValueError("the use_pallas path implements the huber family only")
+        if s_col_weight is not None or loss_cfg.contact_weight != 0.0:
+            raise ValueError(
+                "the use_pallas path has no weighted-state-branch support "
+                "(loss.contact_weight / loss.prey_dist_weight)"
+            )
+    if s_col_weight is not None:
+        raise NotImplementedError("loss.prey_dist_weight is not ported yet (ROADMAP M10)")
+    refuse_unported(loss_cfg)
+
+    def train_step(state: TrainState, batch: VaeBatch, generator=None, eps=None):
+        model = state.model
+        kl_scale = _kl_scale(loss_cfg, state.step)
+        if use_pallas:
+            recon_s, recon_r, kl_rows = model.fused_call(batch.inputs, None, generator, eps)
+            s_loss = huber_mean(batch.next_state, recon_s, loss_cfg.huber_delta)
+            r_loss = huber_mean(batch.rewards, recon_r, loss_cfg.huber_delta)
+            kl_loss = torch.mean(torch.sum(kl_rows, dim=1))
+            out = combine_losses(s_loss, r_loss, kl_loss, loss_cfg, kl_scale)
+        else:
+            recon_s, recon_r, mu, logvar = model(batch.inputs, None, generator, eps)
+            out = elbo_losses(
+                recon_s, recon_r, batch.next_state, batch.rewards, mu, logvar,
+                loss_cfg, kl_scale=kl_scale,
+            )
+        state.optimizer.zero_grad(set_to_none=True)
+        out.loss.backward()
+        if state.grad_clip > 0:
+            _clip_by_global_norm(model.parameters(), state.grad_clip)
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr_fn(state.step)
+        state.optimizer.step()
+        state.step += 1
+        return state, LossOutputs(*(x.detach() for x in out))
+
+    return train_step
+
+
+def make_test_step(loss_cfg: LossConfig, mode: str = "Adam") -> Callable:
+    """Eval step: forward + losses, no gradient."""
+    _refuse_mode(mode)
+
+    @torch.no_grad()
+    def test_step(state: TrainState, batch: VaeBatch, generator=None, eps=None) -> LossOutputs:
+        recon_s, recon_r, mu, logvar = state.model(batch.inputs, None, generator, eps)
+        return elbo_losses(recon_s, recon_r, batch.next_state, batch.rewards, mu, logvar, loss_cfg)
+
+    return test_step
+
+
+# ---------------------------------------------------------------------------
+# Epoch program: collect -> train -> test-collect -> test-eval
+# ---------------------------------------------------------------------------
+
+
+class EnvCarry(NamedTuple):
+    obs: tuple  # StackedObs from env.reset_stacked
+    state: tuple  # MPEState
+
+
+class EpochCarry(NamedTuple):
+    train_state: TrainState
+    buffer_state: BufferState
+    test_buffer_state: BufferState
+    env: EnvCarry
+
+
+class EpochMetrics(NamedTuple):
+    train: LossOutputs
+    test: LossOutputs
+
+
+def stacked_to_grouped(spec: AgentSpec, stacked_obs) -> Tuple[torch.Tensor, ...]:
+    """An env's StackedObs (one tensor per agent class) in the spec's group
+    order; valid where classes and groups coincide (simple_tag)."""
+    fields = tuple(stacked_obs)
+    if len(fields) != len(spec.groups):
+        raise ValueError(f"env has {len(fields)} agent classes but spec has {len(spec.groups)} groups")
+    for t, ((obs_dim, _), idxs) in zip(fields, spec.groups):
+        if tuple(t.shape[-2:]) != (len(idxs), obs_dim):
+            raise ValueError(f"class tensor {tuple(t.shape)} vs group ({len(idxs)}, {obs_dim})")
+    return fields
+
+
+def make_action_sampler(env, spec: AgentSpec):
+    """Uniform random discrete actions, each agent within its own range.
+
+    Returns ``(sample, group_actions)``: ``sample(generator, leading=())``
+    -> int32 [*leading, A]; ``group_actions(actions)`` -> per-group tuple."""
+    if not getattr(env, "discrete_actions", True):
+        raise NotImplementedError("continuous-action collection is not ported yet (ROADMAP M10)")
+    device = env.device
+    act_dims = torch.tensor(spec.act_dims, dtype=torch.float32, device=device)
+    group_idx = [torch.tensor(idxs, device=device) for _, idxs in spec.groups]
+
+    def sample(generator, leading=()):
+        u = torch.rand(*leading, spec.n_agents, generator=generator, device=device)
+        return torch.minimum((u * act_dims).to(torch.int32), act_dims.to(torch.int32) - 1)
+
+    def group_actions(actions):
+        return tuple(actions.index_select(-1, idx) for idx in group_idx)
+
+    return sample, group_actions
+
+
+def make_phase_fns(
+    env,
+    spec: AgentSpec,
+    buffer: ItemBuffer,
+    test_buffer: ItemBuffer,
+    cfg: ExperimentConfig,
+    streams: Dict[str, torch.Generator],
+):
+    """(collect, train_phase, test_phase) closures over the run's streams."""
+    train_step = make_train_step(cfg.loss, cfg.train.mode, use_pallas=cfg.model.use_pallas)
+    test_step = make_test_step(cfg.loss, cfg.train.mode)
+    sample_actions, group_actions = make_action_sampler(env, spec)
+
+    def collect(env_c: EnvCarry, buf_state: BufferState, which_buffer: ItemBuffer):
+        obs, env_state = env_c
+        for _ in range(cfg.train.sample_num):
+            actions = sample_actions(streams["act"])
+            next_obs, next_state, rewards, done, _ = env.step_stacked(env_state, actions)
+            tr = GroupedTransition(
+                obs=stacked_to_grouped(spec, obs),
+                actions=group_actions(actions),
+                next_obs=stacked_to_grouped(spec, next_obs),
+                rewards=rewards,
+                done=torch.max(done.to(torch.float32)),
+            )
+            buf_state = which_buffer.add(buf_state, tr)
+            # auto-reset at episode end; reading the flag waits for the step
+            if bool(torch.all(done)):
+                obs, env_state = env.reset_stacked(streams["reset"])
+            else:
+                obs, env_state = next_obs, next_state
+        return EnvCarry(obs=obs, state=env_state), buf_state
+
+    def train_phase(train_state: TrainState, buf_state: BufferState):
+        outs = []
+        for _ in range(cfg.train.train_num):
+            batch = buffer.sample(buf_state, streams["sample"])
+            vb = vae_batch_from_grouped(spec, batch.experience)
+            train_state, o = train_step(train_state, vb, streams["train"])
+            outs.append(o)
+        return train_state, LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
+
+    def test_phase(train_state: TrainState, buf_state: BufferState) -> LossOutputs:
+        # all test_num eval batches as one forward (see the module docstring)
+        n = cfg.train.test_num * test_buffer.sample_batch_size
+        batch = test_buffer.sample(buf_state, streams["eval"], batch_size=n)
+        vb = vae_batch_from_grouped(spec, batch.experience)
+        return test_step(train_state, vb, streams["eval"])
+
+    return collect, train_phase, test_phase
+
+
+def make_epoch_fn(
+    env,
+    spec: AgentSpec,
+    buffer: ItemBuffer,
+    test_buffer: ItemBuffer,
+    cfg: ExperimentConfig,
+    streams: Dict[str, torch.Generator],
+):
+    """One epoch: EpochCarry -> (EpochCarry, EpochMetrics)."""
+    collect, train_phase, test_phase = make_phase_fns(env, spec, buffer, test_buffer, cfg, streams)
+
+    def epoch(carry: EpochCarry) -> Tuple[EpochCarry, EpochMetrics]:
+        env_c, buf_state = collect(carry.env, carry.buffer_state, buffer)
+        train_state, train_metrics = train_phase(carry.train_state, buf_state)
+        env_c, test_buf_state = collect(env_c, carry.test_buffer_state, test_buffer)
+        test_metrics = test_phase(train_state, test_buf_state)
+        new_carry = EpochCarry(
+            train_state=train_state,
+            buffer_state=buf_state,
+            test_buffer_state=test_buf_state,
+            env=env_c,
+        )
+        return new_carry, EpochMetrics(train=train_metrics, test=test_metrics)
+
+    return epoch

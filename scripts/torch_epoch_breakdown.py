@@ -1,0 +1,118 @@
+"""Where an epoch of the PyTorch port's main path spends its time, on a
+CUDA card.
+
+Runs the default config (simple_tag 30/10/20, batch 128, bf16, full
+widths) with model.use_pallas true and false.  Per route: one warm-up
+epoch, then ``--epochs`` epochs whose four phases (collect, train,
+test-collect, eval) are each timed on the host clock between device syncs,
+then one epoch under torch.profiler for the device's busy time and its
+kernels by device time.  Prints one JSON line per route.
+
+    python scripts/torch_epoch_breakdown.py [--epochs 3]
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from mfvae_tpu_torch.config import ExperimentConfig  # noqa: E402
+from mfvae_tpu_torch.ops import fused_elbo as ops  # noqa: E402
+from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
+from mfvae_tpu_torch.training.trainer import EpochCarry, make_phase_fns  # noqa: E402
+
+
+def timed(fn, *args):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def breakdown(use_pallas: bool, epochs: int, tmp: str) -> dict:
+    cfg = ExperimentConfig()
+    cfg.model.use_pallas = use_pallas
+    cfg.train.log_dir = f"{tmp}/results"
+    cfg.train.checkpoint_dir = ""
+    exp = Experiment(cfg).setup()
+    collect, train_phase, test_phase = make_phase_fns(
+        exp.env, exp.spec, exp.buffer, exp.test_buffer, cfg, exp.streams
+    )
+
+    phases = {"collect": [], "train": [], "test_collect": [], "eval": [], "epoch": []}
+    carry = exp.carry
+    for i in range(epochs + 1):
+        t0 = time.perf_counter()
+        (env_c, buf), t_c = timed(collect, carry.env, carry.buffer_state, exp.buffer)
+        (ts, _), t_t = timed(train_phase, carry.train_state, buf)
+        (env_c, tbuf), t_tc = timed(collect, env_c, carry.test_buffer_state, exp.test_buffer)
+        _, t_e = timed(test_phase, ts, tbuf)
+        carry = EpochCarry(ts, buf, tbuf, env_c)
+        if i == 0:
+            continue  # warm-up
+        for k, v in zip(phases, (t_c, t_t, t_tc, t_e, 1e3 * (time.perf_counter() - t0))):
+            phases[k].append(v)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        env_c, buf = collect(carry.env, carry.buffer_state, exp.buffer)
+        ts, _ = train_phase(carry.train_state, buf)
+        env_c, tbuf = collect(env_c, carry.test_buffer_state, exp.test_buffer)
+        test_phase(ts, tbuf)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        # device-side ranges of user annotations (Optimizer.step#...) overlap
+        # the kernels they enclose; count kernels only
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    busy_ms = sum(k[1] for k in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    return {
+        "use_pallas": use_pallas,
+        "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
+        "phase_ms_all": phases,
+        "profiled_epoch_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "top_kernels_ms_count": kernels[:12],
+        "launches_in_profiled_epoch": dict(ops.LAUNCHES),
+    }
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--epochs", type=int, default=3)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(card, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for use_pallas in (True, False):
+            print(json.dumps({"card": card, **breakdown(use_pallas, args.epochs, tmp)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

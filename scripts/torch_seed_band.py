@@ -1,0 +1,46 @@
+"""Seed spread of the ``parity_small`` run in both packages.
+
+The PyTorch port cannot replay JAX's threefry bits, so its whole-run
+losses are held to the JAX package's spread over seeds instead of to one
+golden (tests/test_torch_experiment.py).  This script measures that
+spread on the CPU: the JAX run for seeds 0..N-1 and the port's run for the
+same seeds, printing min/max of loss_train and loss_test per package.
+
+    JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N]
+"""
+
+import json
+import sys
+import tempfile
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_default_matmul_precision", "highest")
+
+sys.path.insert(0, ".")
+from tests.test_pinned_goldens import golden_configs, run_one  # noqa: E402
+from tests.test_torch_experiment import parity_small  # noqa: E402
+
+from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
+
+
+def main(n: int) -> None:
+    out = {"jax": [], "torch": []}
+    for seed in range(n):
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = golden_configs(tmp)["parity_small"]
+            cfg.train.seed = seed
+            out["jax"].append(run_one(cfg))
+        with tempfile.TemporaryDirectory() as tmp:
+            r = Experiment(parity_small(tmp, seed), device="cpu").setup().run()
+            out["torch"].append({"loss_train": r["loss_train"], "loss_test": r["loss_test"]})
+        print(seed, out["jax"][-1], out["torch"][-1], flush=True)
+    for pkg, runs in out.items():
+        for key in ("loss_train", "loss_test"):
+            vals = [r[key] for r in runs]
+            print(json.dumps({"package": pkg, "metric": key, "min": min(vals), "max": max(vals)}))
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]) if len(sys.argv) > 1 else 8)

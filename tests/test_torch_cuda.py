@@ -1,0 +1,105 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without a CUDA card every test here skips (decided inside
+the fixture, never at import).  On a card, run it without the JAX test
+harness:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: z and the K2 gradients rtol/atol 1e-6 against the same
+arithmetic in plain PyTorch (the kernels are built with -fmad=false and
+accurate expf); the per-row KL and the huber mean rtol 1e-5, because the
+sums are taken in another order.
+"""
+
+import pytest
+import torch
+
+from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig
+from mfvae_tpu_torch.data.transitions import VaeBatch
+from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch
+from mfvae_tpu_torch.ops import fused_elbo as ops
+from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, seed=0):
+    return torch.randn(*shape, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+@pytest.mark.parametrize("shape", [(128, 40, 64), (3, 7, 64), (5, 3, 33)], ids=str)
+def test_reparam_kl_fwd_and_bwd(dev, shape):
+    mu, lv, eps = (_randn(dev, *shape, seed=s) for s in range(3))
+    ops.reset_launch_counts()
+    z, kl = ops.fused_reparam_kl(mu, lv, eps)
+    zp, klp = ops._fused_reparam_kl_plain(mu, lv, eps)
+    torch.testing.assert_close(z, zp, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(kl, klp, rtol=1e-5, atol=1e-6)
+    f = shape[-1]
+    gz, gkl = _randn(dev, *shape, seed=3), _randn(dev, *shape[:-1], seed=4)
+    rows = (mu.reshape(-1, f), lv.reshape(-1, f), eps.reshape(-1, f), gz.reshape(-1, f), gkl.reshape(-1))
+    for got, want in zip(ops._reparam_kl_bwd_cuda(*rows), ops._bwd_rows_plain(*rows)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert ops.LAUNCHES["reparam_kl_fwd"] == 1 and ops.LAUNCHES["reparam_kl_bwd"] == 1
+
+
+@pytest.mark.parametrize("n", [128 * 5660, 128 * 40, 1001])
+@pytest.mark.parametrize("delta", [1.0, 0.5])
+def test_huber_mean(dev, n, delta):
+    x, y = 2 * _randn(dev, n, seed=5), _randn(dev, n, seed=6)
+    x.requires_grad_()
+    h = ops.huber_mean(x, y, delta)
+    torch.testing.assert_close(h, ops._huber_mean_plain(x, y, delta), rtol=1e-5, atol=0.0)
+    (dx,) = torch.autograd.grad(h, x)
+    torch.testing.assert_close(dx, torch.clamp(x - y, -delta, delta) / n, rtol=1e-6, atol=1e-12)
+
+
+def test_wrappers_refuse_on_the_card(dev):
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(TypeError):
+        ops.huber_mean(x.half(), x.half())
+    with pytest.raises(ValueError):
+        ops.fused_reparam_kl(x, x, x.cpu())
+
+
+def test_train_step_routes_agree_on_the_card(dev):
+    agents = ("adversary_0", "adversary_1", "agent_0")
+    spec = AgentSpec.from_dicts(agents, {"adversary_0": 10, "adversary_1": 10, "agent_0": 6}, {a: 5 for a in agents})
+    cfg = ModelConfig(idx_features=8, obs_features=8, action_features=8, encoder_hidden=(16,),
+                      decoder_hidden=(32,), compute_dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = VaeBatch(
+        inputs=GroupedBatch(
+            obs=(torch.randn(8, 2, 10, generator=g, device=dev), torch.randn(8, 1, 6, generator=g, device=dev)),
+            actions=(torch.randint(0, 5, (8, 2), generator=g, device=dev), torch.randint(0, 5, (8, 1), generator=g, device=dev)),
+        ),
+        next_state=torch.randn(8, 26, generator=g, device=dev),
+        rewards=torch.randn(8, 3, generator=g, device=dev),
+    )
+    init = MAVAE.from_config(cfg, spec, device=dev, generator=torch.Generator(device=dev).manual_seed(1)).state_dict()
+    results = []
+    for use_pallas in (False, True):
+        model = MAVAE.from_config(cfg, spec, device=dev)
+        model.load_state_dict(init)
+        state = create_train_state(model, TrainConfig())
+        ops.reset_launch_counts()
+        state, out = make_train_step(LossConfig(), use_pallas=use_pallas)(
+            state, batch, torch.Generator(device=dev).manual_seed(2)
+        )
+        results.append((out, state.model.state_dict(), dict(ops.LAUNCHES)))
+    (o1, p1, l1), (o2, p2, l2) = results
+    assert not any(l1.values()) and l2 == {"reparam_kl_fwd": 1, "reparam_kl_bwd": 1, "huber_mean": 2}
+    for a, b in zip(o1, o2):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for name in p1:
+        torch.testing.assert_close(p1[name], p2[name], rtol=1e-4, atol=1e-5)

@@ -1,0 +1,142 @@
+"""End to end on the CPU: the ``parity_small`` run of
+tests/test_pinned_goldens.py in the PyTorch port.
+
+The port's RNG is not JAX's, so its losses cannot match the golden bit for
+bit.  They are held to the JAX package's own spread over seeds instead:
+``python scripts/torch_seed_band.py 8`` ran the JAX parity_small run for
+seeds 0-7 on the CPU and gave loss_train in [0.2197, 0.3978] and loss_test
+in [0.3361, 0.6776] (the port's own seeds 0-7 gave [0.2284, 0.5100] and
+[0.3932, 0.6657]).  The port's seed-0 run must land inside the JAX range
+widened by half its width on each side (a run from one more seed may fall
+just outside the range that eight seeds spanned).
+"""
+
+from pathlib import Path
+
+import pytest
+import torch
+
+from mfvae_tpu_torch.__main__ import parse_args
+from mfvae_tpu_torch.config import ExperimentConfig
+from mfvae_tpu_torch.data.buffer import tree_leaves
+from mfvae_tpu_torch.training.experiment import Experiment
+
+REFERENCE_YAML = str(Path(__file__).resolve().parents[1] / "examples" / "reference_parity.yaml")
+JAX_TRAIN_LO, JAX_TRAIN_HI = 0.21967171132564545, 0.39779725670814514
+JAX_TEST_LO, JAX_TEST_HI = 0.3360811173915863, 0.6775819659233093
+
+
+def parity_small(tmp, seed=0) -> ExperimentConfig:
+    """tests/test_pinned_goldens.py golden_configs()['parity_small']."""
+    cfg = ExperimentConfig()
+    cfg.env.num_good_agents = 2
+    cfg.env.num_adversaries = 3
+    cfg.env.num_obs = 2
+    cfg.env.max_steps = 64
+    cfg.model.compute_dtype = "float32"
+    cfg.buffer.max_size = 512
+    cfg.buffer.min_size = 32
+    cfg.buffer.batch_size = 32
+    cfg.train.batch_size = 32
+    cfg.train.epoch_num = 8
+    cfg.train.sample_num = 32
+    cfg.train.train_num = 5
+    cfg.train.test_num = 8
+    cfg.train.seed = seed
+    cfg.train.log_dir = f"{tmp}/results"
+    cfg.train.checkpoint_dir = f"{tmp}/ckpt"
+    return cfg
+
+
+def _band(lo, hi):
+    w = 0.5 * (hi - lo)
+    return lo - w, hi + w
+
+
+def _carry_tensors(exp):
+    c = exp.carry
+    ts = c.train_state
+    opt = [t for s in ts.optimizer.state_dict()["state"].values() for t in s.values()]
+    return (
+        list(ts.model.state_dict().values()) + opt
+        + tree_leaves(c.buffer_state.data) + tree_leaves(c.test_buffer_state.data)
+        + list(c.env.obs) + list(c.env.state)
+    )
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_parity_small_lands_in_jax_seed_band(tmp_path, use_pallas):
+    cfg = parity_small(tmp_path)
+    cfg.model.use_pallas = use_pallas
+    result = Experiment(cfg, device="cpu").setup().run()
+    assert result["epoch"] == 7 and len(result["epoch_wall_s"]) == 8
+    lo, hi = _band(JAX_TRAIN_LO, JAX_TRAIN_HI)
+    assert lo <= result["loss_train"] <= hi, result
+    lo, hi = _band(JAX_TEST_LO, JAX_TEST_HI)
+    assert lo <= result["loss_test"] <= hi, result
+    log = (tmp_path / "results").glob("run_*/metrics.jsonl")
+    assert sum(1 for p in log for _ in open(p)) == 8 * 8  # 4 tags x 2 phases x 8 epochs
+
+
+def test_checkpoint_restores_the_carry(tmp_path):
+    cfg = parity_small(tmp_path)
+    cfg.train.epoch_num = 2
+    first = Experiment(cfg, device="cpu").setup()
+    first.run()
+    cfg.train.resume = True
+    second = Experiment(cfg, device="cpu").setup()
+    assert second.start_epoch == 2
+    a, b = _carry_tensors(first), _carry_tensors(second)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    c1, c2 = first.carry, second.carry
+    assert (c1.buffer_state.cursor, c1.buffer_state.size) == (c2.buffer_state.cursor, c2.buffer_state.size)
+    assert c1.train_state.step == c2.train_state.step == 2 * cfg.train.train_num
+    for name, g in first.streams.items():
+        assert torch.equal(g.get_state(), second.streams[name].get_state()), name
+
+
+def test_resumed_run_continues_exactly(tmp_path):
+    """Two epochs, then resume for two more == four epochs straight."""
+    straight = parity_small(tmp_path / "a")
+    straight.train.epoch_num = 4
+    want = Experiment(straight, device="cpu").setup().run()
+    split = parity_small(tmp_path / "b")
+    split.train.epoch_num = 2
+    Experiment(split, device="cpu").setup().run()
+    split.train.epoch_num = 4
+    split.train.resume = True
+    got = Experiment(split, device="cpu").setup().run()
+    assert got["loss_train"] == want["loss_train"] and got["loss_test"] == want["loss_test"]
+
+
+def test_cuda_default_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(parity_small("/nonexistent"))
+
+
+@pytest.mark.parametrize("override,item", [
+    ("train.mode=POPART", "M9"), ("train.collect_policy=pursuit", "M11"),
+    ("train.n_envs=2", "M11"), ("train.unroll_steps=2", "M12"),
+    ("mesh.enable=true", "M17"), ("env.name=MPE_simple_spread_v3", "M14"),
+    ("train.bug_compat_rng=true", "M20"), ("model.det_features=8", "M10"),
+    ("loss.contact_weight=1.0", "M10"),
+])
+def test_unported_options_refused(tmp_path, override, item):
+    cfg, device = parse_args([REFERENCE_YAML, override, "--device", "cpu"])
+    cfg.env.num_good_agents, cfg.env.num_adversaries, cfg.env.num_obs = 1, 1, 1
+    cfg.train.log_dir = str(tmp_path)
+    cfg.train.checkpoint_dir = ""
+    with pytest.raises(NotImplementedError, match=item):
+        Experiment(cfg, device).setup()
+
+
+def test_parse_args():
+    cfg, device = parse_args([REFERENCE_YAML, "train.lr=3e-4", "--device", "cpu"])
+    assert device == "cpu" and cfg.train.lr == 3e-4 and cfg.train.run_name == "reference_parity"
+    cfg, device = parse_args([])
+    assert device == "cuda" and cfg == ExperimentConfig()
+    with pytest.raises(SystemExit):
+        parse_args(["bogus"])

@@ -1,0 +1,31 @@
+"""The PyTorch port and its chip smoke script import nothing of JAX and
+nothing of the JAX package (an AST scan of every import statement)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "mfvae_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "mfvae_tpu")
+
+
+def imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_whole_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for must in ("mfvae_tpu_torch/ops/fused_elbo.py", "mfvae_tpu_torch/training/trainer.py", "chip_smoke.py"):
+        assert must in names
