@@ -11,7 +11,13 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes and at ragged ones, with times (CUDA events, median of
    30 loops of 20 back-to-back calls queued behind a device sleep, so host
-   launch gaps are not counted; inputs are L2-warm).
+   launch gaps are not counted; inputs are L2-warm).  The launch floor is
+   the same median for an empty kernel (torch.cuda._sleep(0)).  K3 is also
+   run in bf16 and f16, on misaligned views, at n = 1 and 3 and at its
+   single-block threshold +-1; each case twice, bit-equal.  torch.profiler
+   must show exactly one device kernel per K3 call at both branches' n.
+   A sweep times K3 on one block against its multi-block grid, for the
+   threshold's crossover.
 4. The main path with the kernels: the default ExperimentConfig (simple_tag
    30 adversaries + 10 good agents + 20 obstacles, batch 128, bf16,
    full widths) with model.use_pallas=true for 2 epochs, through
@@ -156,26 +162,89 @@ def main() -> None:
                 bytes=4 * (4 * r * f + r + 2 * r * f), ops=12 * r * f,
             )
 
-    obs_total = 30 * 142 + 10 * 140
-    for n in (b * obs_total, b * a, 1001):
+    floor_ms = median_ms(lambda: torch.cuda._sleep(0))
+    print(f"[3] launch floor (torch.cuda._sleep(0), an empty kernel): {1e3 * floor_ms:.2f} us", flush=True)
+
+    state_n, reward_n = b * (30 * 142 + 10 * 140), b * a
+    thr = ops.HUBER_SINGLE_BLOCK_MAX
+    wave = ops._HUBER_BLOCKS_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
+    k3_errs = []
+
+    def k3_case(label, x, y, delta):
+        h = ops.huber_mean(x, y, delta)
+        hp = ops._huber_mean_plain(x, y, delta)
+        ok, err = allclose(h, hp, 1e-5, 0.0)
+        same = bool(torch.equal(ops.huber_mean(x, y, delta), h))
+        hl = F.huber_loss(x.float(), y.float(), reduction="mean", delta=delta)
+        print(f"[3] K3 {label} delta={delta}: {h.item():.7f} plain {hp.item():.7f} "
+              f"F.huber_loss {hl.item():.7f} |err| {err:.3e} (rtol 1e-5: another sum order); "
+              f"second call bit-equal {same}")
+        check(ok, f"K3 disagrees with its plain version: {label}, delta={delta}")
+        check(same, f"K3 gave two results on the same inputs: {label}")
+        k3_errs.append(err)
+
+    # the order alternates single- and multi-block grids, so a counter left
+    # non-zero by one call would break the next
+    for n in (state_n, reward_n, 1001, 1, 3, thr - 1, thr, thr + 1):
         for delta in (1.0, 0.5):
             x, y = 2 * randn(n), randn(n)
-            h = ops.huber_mean(x, y, delta)
-            hp = ops._huber_mean_plain(x, y, delta)
-            ok, err = allclose(h, hp, 1e-5, 0.0)
-            hl = F.huber_loss(x, y, reduction="mean", delta=delta)
-            print(f"[3] K3 n={n} delta={delta}: {h.item():.7f} plain {hp.item():.7f} "
-                  f"F.huber_loss {hl.item():.7f} |err| {err:.3e} (rtol 1e-5: another sum order)")
-            check(ok, f"K3 disagrees with its plain version at n={n}, delta={delta}")
-            if delta == 1.0 and n in (b * obs_total, b * a):
-                entry = dict(
-                    max_abs_err=err,
+            k3_case(f"f32 n={n}", x, y, delta)
+            if delta == 1.0 and n in (state_n, reward_n):
+                kernels["K3" if n == state_n else "K3_reward"] = dict(
                     ms=median_ms(lambda: ops._huber_mean_cuda(x, y, delta)),
                     plain_ms=median_ms(lambda: ops._huber_mean_plain(x, y, delta)),
                     library_ms=median_ms(lambda: F.huber_loss(x, y, reduction="mean", delta=delta)),
                     bytes=4 * (2 * n + 1), ops=8 * n,
                 )
-                kernels["K3" if n == b * obs_total else "K3_reward"] = entry
+    k3_paths = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for n in (state_n, reward_n):
+            x, y = (2 * randn(n + 1)).to(dtype), randn(n + 1).to(dtype)
+            name = str(dtype).removeprefix("torch.")
+            k3_case(f"{name} n={n}", x[:n], y[:n], 1.0)
+            k3_case(f"{name} n={n} x[1:] y[1:] (scalar head)", x[1:], y[1:], 1.0)
+            k3_case(f"{name} n={n} x[1:] y[:-1] (scalar loads)", x[1:], y[:-1], 1.0)
+            xa, ya = x[:n].clone(), y[:n].clone()
+            geo = ops.huber_geometry(xa.data_ptr(), ya.data_ptr(), n, xa.element_size(), wave)
+            k3_paths.append({
+                "dtype": name, "n": n, "blocks": geo.blocks, "vec": geo.vec,
+                "ms": median_ms(lambda: ops._huber_mean_cuda(xa, ya, 1.0)),
+                "bound_ms": bound(xa.element_size() * 2 * n + 4, 8 * n)[0],
+            })
+    for kind in ("K3", "K3_reward"):
+        kernels[kind]["max_abs_err"] = max(k3_errs)
+
+    # one device kernel per K3 call, by the profiler's count
+    from torch.profiler import ProfilerActivity, profile
+
+    for n in (state_n, reward_n):
+        x, y = 2 * randn(n), randn(n)
+        ops.huber_mean(x, y)  # the stream's workspace exists before the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ops.huber_mean(x, y)
+            torch.cuda.synchronize()
+        rows = [
+            (e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        ]
+        check(bool(rows), "torch.profiler recorded no device rows: K3's kernels per call cannot be counted")
+        huber = sum(c for k, c in rows if "huber" in k)
+        print(f"[3] K3 n={n}: {huber} device kernel(s) named *huber* in one call "
+              f"(torch.profiler device rows {rows})")
+        check(huber == 1, f"K3 launched {huber} device kernels in one call at n={n}, expected 1")
+
+    # the single-block threshold: one block against the multi-block grid
+    crossover = []
+    for n in (4096, 8192, 12288, 16384, 32768, 131072):
+        x, y = 2 * randn(n), randn(n)
+        blocks = ops.huber_geometry(x.data_ptr(), y.data_ptr(), n, 4, wave, 0).blocks
+        one = median_ms(lambda: ops._huber_mean_cuda(x, y, 1.0, single_block_max=n))
+        many = median_ms(lambda: ops._huber_mean_cuda(x, y, 1.0, single_block_max=0))
+        crossover.append({"n": n, "one_block_ms": one, "blocks": blocks, "multi_block_ms": many})
+        print(f"[3] K3 crossover n={n}: one block {1e3 * one:.2f} us, {blocks} blocks {1e3 * many:.2f} us")
+    print(f"[3] K3 single-block threshold n <= {thr}")
+    print(json.dumps({"launch_floor_ms": floor_ms, "k3_paths": k3_paths, "k3_crossover": crossover}))
     torch.cuda.synchronize()
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
@@ -256,7 +325,7 @@ def main() -> None:
         })
     rk = kernels["K3_reward"]
     print(f"[7] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
-          f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms")
+          f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     print(f"[7] per-epoch wall ms: use_pallas=true {wall}, use_pallas=false {wall_plain}")
     print(smi)
     print(json.dumps({"kernels": line}))

@@ -10,17 +10,38 @@
 //   K1 reparam_kl_fwd   replaces mfvae_tpu/ops/fused_elbo.py _fwd_kernel
 //   K2 reparam_kl_bwd   replaces mfvae_tpu/ops/fused_elbo.py _bwd_kernel
 //   K3 huber_mean       replaces mfvae_tpu/ops/fused_elbo.py _huber_kernel
+//                       (:164, launched by _huber_impl :184)
 //
 // All three are bound by device-memory bytes: a handful of flops per float
 // read.  The design keeps each tensor to one read and one write.
+//
+// K3 is one launch per call.  The TPU kernel carries one running sum over
+// its sequential grid; Hopper's blocks run in no order, so each block
+// writes its partial to its own slot of a workspace, takes a ticket from an
+// arrival counter, and the block that arrives last sums the partials in a
+// fixed order, writes the mean and sets the counter back to 0.  No float
+// atomics: the sum order, and so the result, is the same on every run.
+// Inputs are read in place in their own type (f32, bf16 or f16) with
+// 16-byte loads, two per tensor in flight per thread, and converted to f32
+// in registers, as the TPU kernel's astype(f32) inside its body does.  A
+// small n takes one block, which writes the mean directly.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cuda/atomic>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;  // one warp per row, 256 threads
 constexpr int kReduceThreads = 256;
+// K3's register budget keeps 4 blocks resident per SM; the wrapper caps
+// K3's grid at 4 x SMs, one wave (ops/fused_elbo.py _HUBER_BLOCKS_PER_SM).
+constexpr int kHuberBlocksPerSm = 4;
+// 16-byte loads per tensor in flight per thread (ops/fused_elbo.py _HUBER_LOADS)
+constexpr int kHuberLoads = 2;
 
 template <int VEC>
 struct Vec;
@@ -132,32 +153,111 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;  // valid in thread 0
 }
 
-// K3 pass 1: a fixed grid of blocks, each summing a grid-stride slice of
-// 0.5 q^2 + delta (|d| - q), d = x - y, q = min(|d|, delta), into
-// partials[blockIdx.x].  Blocks run in no order on Hopper, so nothing is
-// carried between them; the fixed grid keeps the sum order deterministic.
-__global__ void huber_partial_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ y, float delta,
-                                     long long n, float* __restrict__ partials) {
-  float acc = 0.f;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float d = fabsf(x[i] - y[i]);
-    const float q = fminf(d, delta);
-    acc += 0.5f * q * q + delta * (d - q);
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// VEC elements of T, loaded as one 16-byte access when VEC * sizeof(T) == 16
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// 0.5 q^2 + delta (|d| - q), d = x - y, q = min(|d|, delta), in f32
+__device__ __forceinline__ float huber_term(float x, float y, float delta) {
+  const float d = fabsf(x - y);
+  const float q = fminf(d, delta);
+  return 0.5f * q * q + delta * (d - q);
 }
 
-// K3 pass 2: one block sums the partials in a fixed order and divides by n.
-__global__ void huber_final_kernel(const float* __restrict__ partials, int nparts,
-                                   long long n, float* __restrict__ out) {
+template <typename T, int VEC>
+__device__ __forceinline__ float huber_pack(const Pack<T, VEC>& a, const Pack<T, VEC>& b,
+                                            float delta, float acc) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc += huber_term(to_f32(a.v[i]), to_f32(b.v[i]), delta);
+  return acc;
+}
+
+// K3.  Elements [0, head) and the tail past the last whole pack are taken
+// one at a time (fewer than VEC each; x + head and y + head are 16-byte
+// aligned when VEC > 1).  The packs are read grid-stride, kHuberLoads per
+// tensor per iteration, all issued before the first is used.  workspace:
+// arrivals[0] (0 between calls), then one f32 partial per block; unused
+// when gridDim.x == 1.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kReduceThreads, kHuberBlocksPerSm)
+huber_mean_kernel(const T* __restrict__ x, const T* __restrict__ y, float delta,
+                  long long n, int head, unsigned int* __restrict__ arrivals,
+                  float* __restrict__ partials, float* __restrict__ out) {
+  using P = Pack<T, VEC>;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long npacks = (n - head) / VEC;
+  const long long tail = head + npacks * VEC;
   float acc = 0.f;
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x) acc += partials[i];
+  if (tid < head) acc += huber_term(to_f32(x[tid]), to_f32(y[tid]), delta);
+  if (tid < n - tail) acc += huber_term(to_f32(x[tail + tid]), to_f32(y[tail + tid]), delta);
+  const P* xp = reinterpret_cast<const P*>(x + head);
+  const P* yp = reinterpret_cast<const P*>(y + head);
+  for (long long i = tid; i < npacks; i += kHuberLoads * stride) {
+    P a[kHuberLoads], b[kHuberLoads];
+#pragma unroll
+    for (int u = 0; u < kHuberLoads; ++u) {
+      if (i + u * stride < npacks) {
+        a[u] = xp[i + u * stride];
+        b[u] = yp[i + u * stride];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kHuberLoads; ++u)
+      if (i + u * stride < npacks) acc = huber_pack(a[u], b[u], delta, acc);
+  }
   acc = block_sum(acc);
-  if (threadIdx.x == 0) *out = acc / static_cast<float>(n);
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) *out = acc / static_cast<float>(n);
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc;
+    // release: this partial is visible to whoever takes a later ticket;
+    // acquire: the last block sees every earlier block's partial.  Lighter
+    // than __threadfence() (fence.sc) and measured faster on the H100.
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(*arrivals);
+    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += blockDim.x)
+    s += __ldcg(partials + i);  // from L2, where the other blocks wrote
+  s = block_sum(s);
+  if (threadIdx.x == 0) {
+    *out = s / static_cast<float>(n);
+    *arrivals = 0u;  // ready for the next call on this stream
+  }
+}
+
+template <typename T, int VEC>
+int launch_huber(const void* x, const void* y, float delta, long long n, int head,
+                 int blocks, void* workspace, float* out, cudaStream_t stream) {
+  unsigned int* arrivals = static_cast<unsigned int*>(workspace);
+  huber_mean_kernel<T, VEC><<<blocks, kReduceThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), delta, n, head, arrivals,
+      reinterpret_cast<float*>(arrivals + 1), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_huber_vec(int vec, const void* x, const void* y, float delta, long long n,
+                     int head, int blocks, void* workspace, float* out,
+                     cudaStream_t stream) {
+  constexpr int kPack = 16 / sizeof(T);
+  if (vec == kPack)
+    return launch_huber<T, kPack>(x, y, delta, n, head, blocks, workspace, out, stream);
+  if (vec == 1 && head == 0)
+    return launch_huber<T, 1>(x, y, delta, n, 0, blocks, workspace, out, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -191,14 +291,23 @@ int mfvae_reparam_kl_bwd(const float* mu, const float* lv, const float* eps,
   return static_cast<int>(cudaGetLastError());
 }
 
-int mfvae_huber_mean(const float* x, const float* y, float delta, long long n,
-                     float* partials, int nparts, float* out,
-                     cudaStream_t stream) {
-  huber_partial_kernel<<<nparts, kReduceThreads, 0, stream>>>(x, y, delta, n, partials);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  huber_final_kernel<<<1, kReduceThreads, 0, stream>>>(partials, nparts, n, out);
-  return static_cast<int>(cudaGetLastError());
+// dtype: 0 float32, 1 bfloat16, 2 float16 (x and y alike).  vec: 1, or the
+// elements in 16 bytes.  workspace: 1 + blocks 32-bit words, word 0 zero.
+int mfvae_huber_mean_onepass(const void* x, const void* y, int dtype, float delta,
+                             long long n, int vec, int head, int blocks,
+                             void* workspace, float* out, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_huber_vec<float>(vec, x, y, delta, n, head, blocks, workspace, out, stream);
+    case 1:
+      return launch_huber_vec<__nv_bfloat16>(vec, x, y, delta, n, head, blocks, workspace,
+                                             out, stream);
+    case 2:
+      return launch_huber_vec<__half>(vec, x, y, delta, n, head, blocks, workspace, out,
+                                      stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

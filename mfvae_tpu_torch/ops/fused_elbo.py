@@ -9,17 +9,33 @@ Three kernels, in ``ops/csrc/fused_elbo.cu`` (built at first use by
   ``-0.5·Σ_f(1 + lv - mu² - e^lv)``.
 - K2 ``reparam_kl_bwd`` replaces ``_bwd_kernel``: ``dmu = gz + gkl·mu``,
   ``dlv = 0.5·gz·eps·std - 0.5·gkl·(1 - e^lv)``; eps gets no gradient.
-- K3 ``huber_mean`` replaces ``_huber_kernel``: ``mean(0.5q² + δ(|d| - q))``
-  with ``d = x - y``, ``q = min(|d|, δ)``.
+- K3 ``huber_mean`` replaces ``_huber_kernel`` (:164, launched by
+  ``_huber_impl`` :184): ``mean(0.5q² + δ(|d| - q))`` with ``d = x - y``,
+  ``q = min(|d|, δ)``, accumulated in f32.
 
 All three move a few bytes per flop, so device-memory bytes bound them: at
 the main path's [128·40, 64] latents K1 moves 5.3 MB, K2 7.9 MB and the
 state-branch K3 5.8 MB, 1.6-2.4 µs at 3.35 TB/s.  The kernels read each
 input once and write each output once.  K1 and K2 give a warp to each row,
-so the per-row KL and the per-row ``gkl`` never leave registers; K3 is a
-two-pass reduction (fixed grid of block partials, then one block) because
-Hopper's blocks, unlike a TPU's sequential grid, cannot carry one running
-sum, and a fixed grid keeps the sum order deterministic.
+so the per-row KL and the per-row ``gkl`` never leave registers.
+
+K3 is one launch per call.  Hopper's blocks, unlike a TPU's sequential
+grid, cannot carry one running sum, so each block writes a partial to a
+workspace and the block that arrives last sums the partials in a fixed
+order: deterministic, with no second launch.  It reads x and y in place in
+their own type (f32, bf16 or f16) with 16-byte loads, on a grid sized to n
+and capped at one wave (``huber_geometry``); a small n takes one block.
+The workspace (an arrival counter, 0 between calls, and the partials) is
+allocated once per (device, stream) and reused: kernels on one stream run
+in order, so one call's last block has reset the counter before the next
+call's blocks start, and two streams get two workspaces.
+
+Dtypes follow the JAX functions: the wrappers take float32, bfloat16 or
+float16.  ``fused_reparam_kl`` casts its inputs to f32 before K1, as
+``_fused_fwd_impl`` does, and returns dmu and dlv in mu's and logvar's
+types.  ``huber_mean`` hands x and y of one type to K3 as they are, casts
+both to f32 where their types differ, and returns each gradient in its
+input's type, as ``_huber_bwd`` does.
 
 Routing: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.  Each launch adds one to ``LAUNCHES``.
@@ -29,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -37,9 +53,16 @@ from mfvae_tpu_torch.utils import kernel_build
 
 SOURCE = "fused_elbo.cu"
 LAUNCHES = {"reparam_kl_fwd": 0, "reparam_kl_bwd": 0, "huber_mean": 0}
+_HUBER_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # as in fused_elbo.cu
+FLOAT_TYPES = tuple(_HUBER_DTYPE_CODE)  # what the wrappers take, as the JAX functions do
 _HUBER_THREADS = 256
-_HUBER_MAX_BLOCKS = 4 * 132  # four blocks per H100 SM
+_HUBER_BLOCKS_PER_SM = 4  # kHuberBlocksPerSm in fused_elbo.cu
+_HUBER_LOADS = 2  # kHuberLoads in fused_elbo.cu: 16-byte loads per tensor per thread a pass
+# n at or below which K3 runs as one block, with no workspace and no atomic.
+# On the H100 one block beat the grid at n = 8,192 and lost at 12,288 (PERF.md).
+HUBER_SINGLE_BLOCK_MAX = 8192
 _LIB = None
+_HUBER_WORKSPACES: dict = {}  # (device index, stream handle) -> int32 tensor
 
 
 def reset_launch_counts() -> None:
@@ -56,10 +79,10 @@ def _lib() -> ctypes.CDLL:
         lib.mfvae_reparam_kl_fwd.restype = I
         lib.mfvae_reparam_kl_bwd.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
         lib.mfvae_reparam_kl_bwd.restype = I
-        lib.mfvae_huber_mean.argtypes = [
-            P, P, ctypes.c_float, ctypes.c_longlong, P, I, P, P,
+        lib.mfvae_huber_mean_onepass.argtypes = [
+            P, P, I, ctypes.c_float, ctypes.c_longlong, I, I, I, P, P, P,
         ]
-        lib.mfvae_huber_mean.restype = I
+        lib.mfvae_huber_mean_onepass.restype = I
         _LIB = lib
     return _LIB
 
@@ -73,11 +96,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
-def _check(name: str, *tensors: torch.Tensor) -> None:
+def _check(name: str, *tensors: torch.Tensor, dtypes=(torch.float32,)) -> None:
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: expected one of {dtypes}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
@@ -94,6 +117,34 @@ def _vec(f: int, *tensors: torch.Tensor) -> int:
     if f % 2 == 0 and all(t.data_ptr() % 8 == 0 for t in tensors):
         return 2
     return 1
+
+
+class HuberGeometry(NamedTuple):
+    vec: int  # elements per load: 16 bytes' worth, or 1
+    head: int  # elements taken one at a time before the first aligned pack
+    blocks: int
+
+
+def huber_geometry(
+    x_ptr: int, y_ptr: int, n: int, itemsize: int, max_blocks: int,
+    single_block_max: int = HUBER_SINGLE_BLOCK_MAX,
+) -> HuberGeometry:
+    """K3's launch geometry for n elements of ``itemsize`` bytes at the
+    given addresses.  16-byte loads need x and y at the same offset from a
+    16-byte boundary; the head up to that boundary and the tail past the
+    last whole pack are read one element at a time.  Each thread takes
+    ``_HUBER_LOADS`` loads per tensor a pass, so a block covers
+    ``_HUBER_LOADS``·256·vec elements a pass; the grid covers n in one pass,
+    capped at ``max_blocks`` (one wave).
+    Up to ``single_block_max`` elements, one block does it all."""
+    pack = 16 // itemsize
+    vec, head = 1, 0
+    if n >= pack and x_ptr % 16 == y_ptr % 16:
+        vec, head = pack, (-x_ptr) % 16 // itemsize
+    if n <= single_block_max:
+        return HuberGeometry(vec, head, 1)
+    blocks = min(math.ceil(n / (_HUBER_LOADS * _HUBER_THREADS * vec)), max_blocks)
+    return HuberGeometry(vec, head, blocks)
 
 
 # ------------------------------------------------------------- plain versions
@@ -125,7 +176,9 @@ def _fused_reparam_kl_plain(mu, logvar, eps):
 
 
 def _huber_mean_plain(x, y, delta: float = 1.0):
-    d = torch.abs(x - y)
+    """K3's arithmetic: x and y cast to f32 before the difference, as the
+    TPU kernel's body does."""
+    d = torch.abs(x.to(torch.float32) - y.to(torch.float32))
     q = torch.clamp(d, max=delta)
     return (0.5 * q * q + delta * (d - q)).sum() / x.numel()
 
@@ -166,17 +219,34 @@ def _reparam_kl_bwd_cuda(mu, lv, eps, gz, gkl):
     return dmu, dlv
 
 
-def _huber_mean_cuda(x, y, delta: float):
-    _check("huber_mean", x, y)
+def _huber_workspace(stream: int) -> torch.Tensor:
+    """The arrival counter and one partial per block of the widest grid,
+    for the current device and ``stream``; zeroed once, then reset by each
+    launch's last block."""
+    key = (torch.cuda.current_device(), stream)
+    ws = _HUBER_WORKSPACES.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(key[0]).multi_processor_count
+        ws = torch.zeros(1 + _HUBER_BLOCKS_PER_SM * sms, dtype=torch.int32, device="cuda")
+        ws = _HUBER_WORKSPACES.setdefault(key, ws)
+    return ws
+
+
+def _huber_mean_cuda(x, y, delta: float, single_block_max: int = HUBER_SINGLE_BLOCK_MAX):
+    _check("huber_mean", x, y, dtypes=FLOAT_TYPES)
+    if x.dtype != y.dtype:
+        raise TypeError(f"huber_mean: K3 reads one type, got {x.dtype} and {y.dtype}")
     n = x.numel()
-    nparts = min(math.ceil(n / _HUBER_THREADS), _HUBER_MAX_BLOCKS)
-    partials = torch.empty(nparts, device=x.device, dtype=torch.float32)
     out = torch.empty((), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().mfvae_huber_mean(
-            x.data_ptr(), y.data_ptr(), float(delta), n, partials.data_ptr(),
-            nparts, out.data_ptr(), stream,
+        ws = _huber_workspace(stream)
+        geo = huber_geometry(
+            x.data_ptr(), y.data_ptr(), n, x.element_size(), ws.numel() - 1, single_block_max
+        )
+        err = _lib().mfvae_huber_mean_onepass(
+            x.data_ptr(), y.data_ptr(), _HUBER_DTYPE_CODE[x.dtype], float(delta), n,
+            geo.vec, geo.head, geo.blocks, ws.data_ptr(), out.data_ptr(), stream,
         )
     _raise_on(err, "huber_mean")
     LAUNCHES["huber_mean"] += 1
@@ -208,11 +278,13 @@ class _FusedReparamKL(torch.autograd.Function):
 
 
 def fused_reparam_kl(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor):
-    """(z [..., F], kl_row [...]) for float32 latents [..., F]:
+    """(z [..., F], kl_row [...]), both float32, for latents [..., F] in
+    float32, bfloat16 or float16, cast to f32 first:
     ``z = mu + eps·exp(0.5·logvar)``,
     ``kl_row = -0.5·Σ_F(1 + logvar - mu² - e^logvar)``.
-    Differentiable in mu and logvar (K2); eps gets no gradient."""
-    _check("fused_reparam_kl", mu, logvar, eps)
+    Differentiable in mu and logvar (K2), each gradient in its input's
+    type; eps gets no gradient."""
+    _check("fused_reparam_kl", mu, logvar, eps, dtypes=FLOAT_TYPES)
     if not (mu.shape == logvar.shape == eps.shape):
         raise ValueError(
             f"fused_reparam_kl: shapes differ {tuple(mu.shape)}, "
@@ -220,7 +292,9 @@ def fused_reparam_kl(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor):
         )
     if mu.dim() < 1 or mu.shape[-1] == 0:
         raise ValueError("fused_reparam_kl: needs a non-empty last axis")
-    return _FusedReparamKL.apply(mu, logvar, eps)
+    # autograd's cast back hands dmu and dlv over in mu's and logvar's types
+    f32 = torch.float32
+    return _FusedReparamKL.apply(mu.to(f32), logvar.to(f32), eps.to(f32))
 
 
 class _HuberMean(torch.autograd.Function):
@@ -234,21 +308,25 @@ class _HuberMean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # the TPU path's backward (_huber_bwd) is plain jnp too
+        # the TPU path's backward (_huber_bwd) is plain jnp too: f32, then
+        # one rounding to each input's type
         x, y = ctx.saved_tensors
-        d = x - y
+        d = x.to(torch.float32) - y.to(torch.float32)
         grad = torch.clamp(d, -ctx.delta, ctx.delta) * (g / x.numel())
-        return grad, -grad, None
+        return grad.to(x.dtype), (-grad).to(y.dtype), None
 
 
 def huber_mean(x: torch.Tensor, y: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     """mean over all elements of huber(x - y) with threshold ``delta``, as a
-    float32 scalar."""
-    _check("huber_mean", x, y)
+    float32 scalar, for x and y in float32, bfloat16 or float16 (computed
+    in f32).  The gradients come back in x's and y's types."""
+    _check("huber_mean", x, y, dtypes=FLOAT_TYPES)
     if x.shape != y.shape:
         raise ValueError(
             f"huber_mean: shapes differ {tuple(x.shape)} vs {tuple(y.shape)}"
         )
     if x.numel() == 0:
         raise ValueError("huber_mean: empty input")
+    if x.dtype != y.dtype:
+        x, y = x.to(torch.float32), y.to(torch.float32)
     return _HuberMean.apply(x, y, float(delta))

@@ -9,7 +9,9 @@ harness:
 Tolerances: z and the K2 gradients rtol/atol 1e-6 against the same
 arithmetic in plain PyTorch (the kernels are built with -fmad=false and
 accurate expf); the per-row KL and the huber mean rtol 1e-5, because the
-sums are taken in another order.
+sums are taken in another order.  K3's gradients in bf16/f16 are held to
+one ulp of their type (both sides compute in f32 and round once).  K3 sums
+in a fixed order, so two calls on the same inputs are bit-equal.
 """
 
 import pytest
@@ -53,21 +55,85 @@ def test_reparam_kl_fwd_and_bwd(dev, shape):
     assert ops.LAUNCHES["reparam_kl_fwd"] == 1 and ops.LAUNCHES["reparam_kl_bwd"] == 1
 
 
-@pytest.mark.parametrize("n", [128 * 5660, 128 * 40, 1001])
+T = ops.HUBER_SINGLE_BLOCK_MAX
+ULP = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
+@pytest.mark.parametrize("n", [128 * 5660, 128 * 40, 1001, 1, 3, T - 1, T, T + 1])
 @pytest.mark.parametrize("delta", [1.0, 0.5])
 def test_huber_mean(dev, n, delta):
     x, y = 2 * _randn(dev, n, seed=5), _randn(dev, n, seed=6)
     x.requires_grad_()
     h = ops.huber_mean(x, y, delta)
     torch.testing.assert_close(h, ops._huber_mean_plain(x, y, delta), rtol=1e-5, atol=0.0)
+    assert torch.equal(ops.huber_mean(x, y, delta), h)  # a fixed sum order
     (dx,) = torch.autograd.grad(h, x)
     torch.testing.assert_close(dx, torch.clamp(x - y, -delta, delta) / n, rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("n", [128 * 5660, 128 * 40, 1001, T + 1])
+def test_huber_mean_low_precision(dev, dtype, n):
+    x, y = (2 * _randn(dev, n, seed=5)).to(dtype), _randn(dev, n, seed=6).to(dtype)
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+    h = ops.huber_mean(xg, yg, 1.0)
+    torch.testing.assert_close(h, ops._huber_mean_plain(x, y, 1.0), rtol=1e-5, atol=0.0)
+    assert torch.equal(ops.huber_mean(x, y, 1.0), h)
+    dx, dy = torch.autograd.grad(h, (xg, yg))
+    want = torch.clamp(x.float() - y.float(), -1.0, 1.0) / n
+    assert dx.dtype == dy.dtype == dtype
+    torch.testing.assert_close(dx, want.to(dtype), rtol=ULP[dtype], atol=1e-12)
+    torch.testing.assert_close(dy, (-want).to(dtype), rtol=ULP[dtype], atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [128 * 5660, 128 * 40])
+def test_huber_mean_misaligned_views(dev, dtype, n):
+    x, y = (2 * _randn(dev, n + 1, seed=5)).to(dtype), _randn(dev, n + 1, seed=6).to(dtype)
+    # one element in on both: a scalar head, then 16-byte loads; on x only:
+    # the offsets differ, so every load is scalar
+    for xv, yv in ((x[1:], y[1:]), (x[1:], y[:-1])):
+        h = ops.huber_mean(xv, yv, 1.0)
+        torch.testing.assert_close(h, ops._huber_mean_plain(xv, yv, 1.0), rtol=1e-5, atol=0.0)
+        assert torch.equal(ops.huber_mean(xv, yv, 1.0), h)
+
+
+def test_huber_mean_resets_its_counter(dev):
+    """Grids of different sizes back to back on one stream: each call's last
+    block must find the counter at 0."""
+    calls = []
+    for n in (T + 1, 128 * 5660, 128 * 40, T + 1, 128 * 5660):
+        x, y = 2 * _randn(dev, n, seed=n), _randn(dev, n, seed=n + 1)
+        calls.append((ops.huber_mean(x, y, 1.0), ops._huber_mean_plain(x, y, 1.0)))
+    for h, want in calls:
+        torch.testing.assert_close(h, want, rtol=1e-5, atol=0.0)
+
+
+def test_huber_mean_on_two_streams(dev):
+    """Each stream has its own workspace, so interleaved calls on two
+    streams stay right and bit-equal to themselves."""
+    n = 128 * 5660
+    inputs = [(2 * _randn(dev, n, seed=s), _randn(dev, n, seed=s + 1)) for s in (7, 9)]
+    wants = [ops._huber_mean_plain(x, y, 1.0) for x, y in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, (stream, (x, y)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(stream):
+                got[i].append(ops.huber_mean(x, y, 1.0))
+    torch.cuda.synchronize()
+    for hs, want in zip(got, wants):
+        torch.testing.assert_close(hs[0], want, rtol=1e-5, atol=0.0)
+        assert all(torch.equal(h, hs[0]) for h in hs)
+    keys = {k for k in ops._HUBER_WORKSPACES if k[1] in {s.cuda_stream for s in streams}}
+    assert len(keys) == 2
 
 
 def test_wrappers_refuse_on_the_card(dev):
     x = torch.zeros(4, 8, device=dev)
     with pytest.raises(TypeError):
-        ops.huber_mean(x.half(), x.half())
+        ops.huber_mean(x.double(), x.double())
     with pytest.raises(ValueError):
         ops.fused_reparam_kl(x, x, x.cpu())
 

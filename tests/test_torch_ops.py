@@ -2,7 +2,15 @@
 the same autograd Functions) against the JAX ``fused_reparam_kl`` and
 ``huber_mean``, which run their Pallas kernels in interpret mode on the
 CPU.  Forward values and gradients, rtol 1e-5 / atol 1e-6 (float32 on both
-sides, sums over F and over n taken in another order)."""
+sides, sums over F and over n taken in another order).
+
+bfloat16 and float16 inputs hold exactly representable values on both
+sides.  Both compute in f32 (values f32, held at the f32 tolerance) and
+round each gradient once to its input's type, so a gradient may differ by
+one ulp of that type: rtol 2^-7 for bf16, 2^-10 for f16, with the f32
+atol."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +23,11 @@ from mfvae_tpu.ops.fused_elbo import huber_mean as j_huber
 from mfvae_tpu_torch.ops import fused_elbo as ops
 
 RTOL, ATOL = 1e-5, 1e-6
+TYPES = {  # name -> (torch type, JAX type, gradient rtol: one ulp of the type)
+    "float32": (torch.float32, jnp.float32, RTOL),
+    "bfloat16": (torch.bfloat16, jnp.bfloat16, 2.0**-7),
+    "float16": (torch.float16, jnp.float16, 2.0**-10),
+}
 
 
 def close(t, j):
@@ -62,6 +75,123 @@ def test_huber_mean_matches_jax(n, delta):
     close(torch.nn.functional.huber_loss(tx, ty, delta=delta), jv)
 
 
+def as_type(a: np.ndarray, name: str):
+    """The values of ``a`` rounded once to ``name``, as a torch tensor and
+    as a JAX array that hold the same numbers."""
+    tdt, jdt, _ = TYPES[name]
+    t = torch.tensor(a).to(tdt)
+    return t, jnp.asarray(t.float().numpy()).astype(jdt)
+
+
+def close_grad(t, j, name):
+    """A gradient in its input's type, within one ulp of that type."""
+    assert t.dtype == TYPES[name][0] and j.dtype == TYPES[name][1]
+    np.testing.assert_allclose(
+        t.float().numpy(), np.asarray(j).astype(np.float32), rtol=TYPES[name][2], atol=ATOL
+    )
+
+
+@pytest.mark.parametrize(
+    "x_type,y_type",
+    [("bfloat16", "bfloat16"), ("float16", "float16"), ("bfloat16", "float32"), ("float16", "bfloat16")],
+)
+def test_huber_mean_low_precision_matches_jax(x_type, y_type):
+    rng = np.random.default_rng(2)
+    tx, jx = as_type((2 * rng.normal(size=1000)).astype(np.float32), x_type)
+    ty, jy = as_type(rng.normal(size=1000).astype(np.float32), y_type)
+    jv, (jdx, jdy) = jax.value_and_grad(lambda a, b: j_huber(a, b, 0.5), argnums=(0, 1))(jx, jy)
+    tx.requires_grad_()
+    ty.requires_grad_()
+    tv = ops.huber_mean(tx, ty, 0.5)
+    assert tv.dtype == torch.float32 and jv.dtype == jnp.float32
+    close(tv, jv)
+    close(ops._huber_mean_plain(tx, ty, 0.5), jv)
+    dx, dy = torch.autograd.grad(tv, (tx, ty))
+    close_grad(dx, jdx, x_type)
+    close_grad(dy, jdy, y_type)
+
+
+@pytest.mark.parametrize(
+    "types",
+    [("bfloat16",) * 3, ("float16",) * 3, ("bfloat16", "float16", "float32")],
+    ids=lambda t: "-".join(t),
+)
+def test_fused_reparam_kl_low_precision_matches_jax(types):
+    rng = np.random.default_rng(3)
+    shape = (3, 7, 64)
+    (tmu, jmu), (tlv, jlv), (teps, jeps) = (
+        as_type(rng.normal(size=shape).astype(np.float32), name) for name in types
+    )
+    gz = rng.normal(size=shape).astype(np.float32)
+    gkl = rng.normal(size=shape[:-1]).astype(np.float32)
+
+    def jloss(m, l):
+        z, kl = j_fused(m, l, jeps)
+        return jnp.sum(z * gz) + jnp.sum(kl * gkl), (z, kl)
+
+    (_, (jz, jkl)), (jdmu, jdlv) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(jmu, jlv)
+    tmu.requires_grad_()
+    tlv.requires_grad_()
+    tz, tkl = ops.fused_reparam_kl(tmu, tlv, teps)
+    assert tz.dtype == tkl.dtype == torch.float32
+    close(tz, jz)
+    close(tkl, jkl)
+    dmu, dlv = torch.autograd.grad((tz, tkl), (tmu, tlv), (torch.tensor(gz), torch.tensor(gkl)))
+    close_grad(dmu, jdmu, types[0])
+    close_grad(dlv, jdlv, types[1])
+
+
+T = ops.HUBER_SINGLE_BLOCK_MAX
+WAVE = 4 * 132  # K3's grid cap on an H100: 4 blocks on each of 132 SMs
+
+
+@pytest.mark.parametrize(
+    "n,x_off,y_off,itemsize,want",
+    [
+        (1, 0, 0, 4, (1, 0, 1)),  # shorter than one pack: one element at a time
+        (3, 0, 0, 4, (1, 0, 1)),
+        (4, 0, 0, 4, (4, 0, 1)),
+        (5120, 0, 0, 4, (4, 0, 1)),  # the reward branch: one block
+        (724480, 0, 0, 4, (4, 0, 354)),  # the state branch: 2048 floats a block
+        (724480, 0, 0, 2, (8, 0, 177)),  # bf16/f16: 4096 a block
+        (T - 1, 0, 0, 4, (4, 0, 1)),
+        (T, 0, 0, 4, (4, 0, 1)),
+        (T + 1, 0, 0, 4, (4, 0, math.ceil((T + 1) / 2048))),
+        (5120, 4, 4, 4, (4, 3, 1)),  # both views 4 bytes in: a head of 3
+        (724480, 4, 4, 4, (4, 3, 354)),
+        (724480, 4, 0, 4, (1, 0, WAVE)),  # offsets differ: scalar loads
+        (724480, 2, 2, 2, (8, 7, 177)),
+        (10**8, 0, 0, 4, (4, 0, WAVE)),  # capped at one wave
+    ],
+)
+def test_huber_geometry(n, x_off, y_off, itemsize, want):
+    base = 1 << 20
+    assert tuple(ops.huber_geometry(base + x_off, 2 * base + y_off, n, itemsize, WAVE)) == want
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_huber_geometry_covers_every_element_once(itemsize):
+    """The kernel's partition: a scalar head that ends on a 16-byte boundary
+    of both tensors, whole packs, and a scalar tail, each shorter than a
+    pack; the grid is within the workspace and covers n in one pass unless
+    capped."""
+    for n in (1, 2, 3, 7, 8, 9, 33, 1001, T, T + 1, 5120, 724480):
+        for off in range(0, 16, itemsize):
+            for y_off in (off, (off + itemsize) % 16):
+                x_ptr, y_ptr = 4096 + off, 8192 + y_off
+                vec, head, blocks = ops.huber_geometry(x_ptr, y_ptr, n, itemsize, WAVE)
+                npacks = (n - head) // vec
+                tail = n - head - npacks * vec
+                assert head >= 0 and tail >= 0 and head + npacks * vec + tail == n
+                assert head < vec or head == 0 and vec == 1
+                assert tail < vec or vec == 1 and tail == 0
+                if vec > 1:
+                    assert (x_ptr + head * itemsize) % 16 == 0 == (y_ptr + head * itemsize) % 16
+                    assert vec * itemsize == 16
+                assert 1 <= blocks <= WAVE
+                assert blocks == 1 or blocks == WAVE or blocks * 2 * 256 * vec >= n
+
+
 def test_plain_autograd_agrees_with_the_function_backward():
     """K2's formula (the Function's backward) equals autograd through K1's
     plain arithmetic; on the card the same pair holds the kernel."""
@@ -87,7 +217,9 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         ops.huber_mean(x, torch.zeros(8, 4))
     with pytest.raises(TypeError):
-        ops.huber_mean(x.half(), x.half())
+        ops.huber_mean(x.double(), x.double())
+    with pytest.raises(TypeError):
+        ops.huber_mean(x.int(), x.int())
     with pytest.raises(ValueError):
         ops.huber_mean(torch.zeros(0), torch.zeros(0))
     with pytest.raises(ValueError):
