@@ -27,7 +27,28 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    may launch.
 6. One train step by both routes from the same state, batch and generator
    state; the losses must agree within rtol 1e-4.
-7. The kernel list as one JSON line, the card, and the result line.
+7. World model: examples/world_model.yaml at full width (det_features 128,
+   residual_state, state_skip, decoder_layernorm, unfused decoders over a
+   15,900-wide input, loss.s_weight 300, bf16) with model.use_pallas=true
+   for 2 epochs (launches K1 = K2 = 20, K3 = 40), on plain ops for 1 epoch
+   (no launches), and one train step by both routes (rtol 1e-4).
+8. PopArt: examples/torch_popart.yaml (POPART, torch loss family,
+   cosine_periodic lr, popart head, train_num 4) with the kernels for 2
+   epochs (K1 = K2 = 8, K3 = 16); sigma must have moved off 1 and be
+   finite; one train step by both routes (rtol 1e-4); and the PopArt
+   invariant on the card: the denormalized reward prediction of the head,
+   in float32 on a real batch's head input, before and after one
+   pop_rescale_head, within rtol 1e-5 of its largest value.
+9. examples/det_quality.yaml with latent_structure=shared_private, with
+   the kernels for 1 epoch (K1 = K2 = 10, K3 = 20): the shared latent's
+   noise and KL column on the card.
+10. Plain-only options, 1 epoch each at full width, no launches, finite
+   losses: the two-hot head with reward_head_input=pred_state and
+   action_delta_head; examples/continuous_tag.yaml; loss.contact_weight=1
+   with loss.prey_dist_weight=1.
+11. The kernel list as one JSON line, the card, and the result line.
+
+Phases 4-10 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -38,6 +59,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -60,10 +82,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     try:
-        from mfvae_tpu_torch.config import ExperimentConfig
+        from mfvae_tpu_torch.config import ExperimentConfig, load_config
         from mfvae_tpu_torch.data.transitions import vae_batch_from_grouped
         from mfvae_tpu_torch.ops import fused_elbo as ops
         from mfvae_tpu_torch.training.experiment import Experiment
+        from mfvae_tpu_torch.training import popart
         from mfvae_tpu_torch.training.trainer import make_train_step
         from mfvae_tpu_torch.utils import kernel_build
     except ImportError as e:
@@ -253,8 +276,11 @@ def main() -> None:
               f"library {lib_us}  bound {1e3 * k['bound_ms']:.2f} us ({k['bound_by']})", flush=True)
 
     # ------------------------------------------- 4./5. the main path, both routes
-    def main_path(use_pallas: bool, epochs: int, tmp: str):
-        cfg = ExperimentConfig()  # = examples/reference_parity.yaml
+    examples = Path(__file__).resolve().parent / "examples"
+
+    def drive(cfg, use_pallas: bool, epochs: int, tmp: str, phase: str, label: str):
+        """Experiment(cfg).setup().run() for ``epochs``, with the launch
+        counts set to 0 just before the run and read just after."""
         cfg.model.use_pallas = use_pallas
         cfg.train.epoch_num = epochs
         cfg.train.log_dir = f"{tmp}/results"
@@ -263,30 +289,26 @@ def main() -> None:
         ops.reset_launch_counts()
         result = exp.run()
         torch.cuda.synchronize()
-        return exp, result, dict(ops.LAUNCHES)
+        launches = dict(ops.LAUNCHES)
+        wall = [round(1e3 * s, 3) for s in result["epoch_wall_s"]]
+        print(f"[{phase}] {label}, use_pallas={str(use_pallas).lower()}, {epochs} epoch(s): "
+              f"loss_train {result['loss_train']:.6f} loss_test {result['loss_test']:.6f} "
+              f"epoch wall ms {wall} launches {launches}", flush=True)
+        check(math.isfinite(result["loss_train"]) and math.isfinite(result["loss_test"]),
+              f"{label}: non-finite losses")
+        if use_pallas:
+            tn = cfg.train.train_num
+            want = {"reparam_kl_fwd": epochs * tn, "reparam_kl_bwd": epochs * tn,
+                    "huber_mean": 2 * epochs * tn}
+            check(launches == want, f"{label}: launch counts {launches}, expected {want}")
+        else:
+            check(not any(launches.values()), f"{label}: the plain route launched kernels: {launches}")
+        return exp, wall, launches
 
-    with tempfile.TemporaryDirectory() as tmp:
-        exp, res, launches = main_path(True, 2, f"{tmp}/pallas")
-        tn = exp.cfg.train.train_num
-        want = {"reparam_kl_fwd": 2 * tn, "reparam_kl_bwd": 2 * tn, "huber_mean": 4 * tn}
-        main_launches = launches
-        wall = [round(1e3 * s, 3) for s in res["epoch_wall_s"]]
-        print(f"[4] use_pallas=true, 2 epochs: loss_train {res['loss_train']:.6f} "
-              f"loss_test {res['loss_test']:.6f} epoch wall ms {wall} launches {launches}")
-        check(launches == want, f"launch counts {launches}, expected {want}")
-        check(math.isfinite(res["loss_train"]) and math.isfinite(res["loss_test"]), "non-finite losses")
-        del exp
-
-        exp, res, launches = main_path(False, 1, f"{tmp}/plain")
-        wall_plain = [round(1e3 * s, 3) for s in res["epoch_wall_s"]]
-        print(f"[5] use_pallas=false, 1 epoch: loss_train {res['loss_train']:.6f} "
-              f"loss_test {res['loss_test']:.6f} epoch wall ms {wall_plain} launches {launches}")
-        check(not any(launches.values()), f"plain route launched kernels: {launches}")
-        check(math.isfinite(res["loss_train"]) and math.isfinite(res["loss_test"]), "non-finite losses")
-
-        # ----------------------------------------- 6. one step by both routes
-        carry = exp.carry
-        spec = exp.spec
+    def both_routes(exp, phase: str, label: str):
+        """One train step by both routes from one state, batch and
+        generator state; the losses within rtol 1e-4."""
+        carry, spec, cfg = exp.carry, exp.spec, exp.cfg
         batch = vae_batch_from_grouped(
             spec, exp.buffer.sample(carry.buffer_state, torch.Generator(device=dev).manual_seed(1)).experience
         )
@@ -294,20 +316,111 @@ def main() -> None:
         for use_pallas in (False, True):
             state = copy.deepcopy(carry.train_state)
             gen = torch.Generator(device=dev).manual_seed(2)
-            step = make_train_step(exp.cfg.loss, use_pallas=use_pallas)
+            step = make_train_step(cfg.loss, cfg.train.mode, cfg.train.popart_beta, use_pallas=use_pallas)
             _, o = step(state, batch, gen)
             outs[use_pallas] = [float(x) for x in o]
             if use_pallas:
                 recon_s, recon_r, _ = state.model.fused_call(batch.inputs, None, gen)
-                check(tuple(recon_s.shape) == (128, sum(spec.obs_dims)) and tuple(recon_r.shape) == (128, 40),
-                      f"output shapes {tuple(recon_s.shape)}, {tuple(recon_r.shape)}")
-                check(bool(torch.isfinite(recon_s).all() and torch.isfinite(recon_r).all()), "non-finite outputs")
+                b = cfg.train.batch_size
+                check(tuple(recon_s.shape) == (b, sum(spec.obs_dims)) and tuple(recon_r.shape) == (b, spec.n_agents),
+                      f"{label}: output shapes {tuple(recon_s.shape)}, {tuple(recon_r.shape)}")
+                check(bool(torch.isfinite(recon_s).all() and torch.isfinite(recon_r).all()),
+                      f"{label}: non-finite outputs")
         for name, p, q in zip(("loss", "s_loss", "r_loss", "kl_loss"), outs[False], outs[True]):
-            print(f"[6] {name}: plain {p:.7f} kernels {q:.7f} rel {abs(p - q) / abs(p):.3e}")
-            check(abs(p - q) <= 1e-4 * abs(p), f"{name} differs between the routes beyond rtol 1e-4")
-        del exp, carry
+            print(f"[{phase}] {label} one step, {name}: plain {p:.7f} kernels {q:.7f} rel {abs(p - q) / abs(p):.3e}")
+            check(abs(p - q) <= 1e-4 * abs(p), f"{label}: {name} differs between the routes beyond rtol 1e-4")
+        return batch
 
-    # ------------------------------------------------------ 7. the kernel list
+    path_launches = {}
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # = examples/reference_parity.yaml
+        exp, walls["reference_parity, kernels"], main_launches = drive(
+            ExperimentConfig(), True, 2, f"{tmp}/pallas", "4", "reference_parity")
+        path_launches["reference_parity"] = main_launches
+        del exp
+        exp, walls["reference_parity, plain"], _ = drive(
+            ExperimentConfig(), False, 1, f"{tmp}/plain", "5", "reference_parity")
+
+        # ----------------------------------------- 6. one step by both routes
+        both_routes(exp, "6", "reference_parity")
+        del exp
+
+        # ------------------------------------------------------ 7. world model
+        wm = str(examples / "world_model.yaml")
+        exp, walls["world_model, kernels"], path_launches["world_model"] = drive(
+            load_config(wm), True, 2, f"{tmp}/wm_pallas", "7", "world_model")
+        m = exp.cfg.model
+        check(m.det_features == 128 and m.residual_state and m.state_skip and m.decoder_layernorm
+              and not m.fused_decoders and exp.cfg.loss.s_weight == 300.0 and m.compute_dtype == "bfloat16",
+              "world_model.yaml is not the configuration this phase names")
+        dec_in = exp.carry.train_state.model.state_decoder.fc0.kernel.shape[0]
+        print(f"[7] world_model decoder input width {dec_in}")
+        check(dec_in == 15900, f"world_model decoder input {dec_in}, expected 15,900")
+        del exp
+        exp, walls["world_model, plain"], _ = drive(load_config(wm), False, 1, f"{tmp}/wm_plain", "7", "world_model")
+        both_routes(exp, "7", "world_model")
+        del exp
+
+        # ----------------------------------------------------------- 8. PopArt
+        exp, walls["torch_popart, kernels"], path_launches["torch_popart"] = drive(
+            load_config(str(examples / "torch_popart.yaml")), True, 2, f"{tmp}/popart", "8", "torch_popart")
+        check(exp.cfg.train.mode == "POPART" and exp.cfg.train.train_num == 4, "torch_popart.yaml changed")
+        sigma = exp.carry.train_state.popart.sigma
+        print(f"[8] torch_popart sigma after {exp.carry.train_state.step} steps: "
+              f"min {float(sigma.min()):.7f} max {float(sigma.max()):.7f}")
+        check(bool(torch.isfinite(sigma).all()) and not bool((sigma == 1).all()), "PopArt sigma did not move off 1")
+        batch = both_routes(exp, "8", "torch_popart")
+        # the invariant, on the card: the head in float32 on a real batch's input
+        model = copy.deepcopy(exp.carry.train_state.model)
+        seen = []
+        hook = model.reward_linear.register_forward_hook(lambda mod, args, out: seen.append(args[0].float()))
+        with torch.no_grad():
+            model.mean_call(batch.inputs)
+        hook.remove()
+        x = seen[0]
+        old = exp.carry.train_state.popart
+        new = popart.art(old, 3.0 + 5.0 * randn(*batch.rewards.shape), 0.3)
+
+        @torch.no_grad()
+        def denormalized(stats):
+            head = model.reward_linear
+            return popart.denormalize(stats, x @ head.kernel + head.bias)
+
+        before = denormalized(old)
+        popart.pop_rescale_head(model, old, new)
+        after = denormalized(new)
+        scale = float(before.abs().max())
+        err = float((after - before).abs().max())
+        print(f"[8] pop invariant: max |after - before| {err:.3e}, max |before| {scale:.4f}, "
+              f"sigma moved by up to {float((new.sigma / old.sigma - 1).abs().max()):.3f}x")
+        check(err <= 1e-5 * scale, "denormalized predictions moved under pop_rescale_head beyond rtol 1e-5")
+        del exp, model
+
+        # ------------------------------------------- 9. det_quality + shared_private
+        label = "det_quality+shared_private"
+        cfg = load_config(str(examples / "det_quality.yaml"), ["model.latent_structure=shared_private"])
+        exp, walls[label], path_launches[label] = drive(cfg, True, 1, f"{tmp}/det_shared", "9", label)
+        del exp
+
+        # ------------------------------------------------- 10. plain-only options
+        twohot = ExperimentConfig()
+        twohot.model.reward_head_mode = "twohot"
+        twohot.model.reward_head_input = "pred_state"
+        twohot.model.fused_decoders = False
+        twohot.model.action_delta_head = True
+        weighted = ExperimentConfig()
+        weighted.loss.contact_weight = 1.0
+        weighted.loss.prey_dist_weight = 1.0
+        for label, cfg in (
+            ("twohot+pred_state+action_delta_head", twohot),
+            ("continuous_tag", load_config(str(examples / "continuous_tag.yaml"))),
+            ("contact_weight+prey_dist_weight", weighted),
+        ):
+            exp, walls[label], _ = drive(cfg, False, 1, f"{tmp}/{label}", "10", label)
+            del exp
+
+    # ------------------------------------------------------ 11. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -322,11 +435,13 @@ def main() -> None:
             "launches": main_launches[counter], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
+            "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[7] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[11] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
-    print(f"[7] per-epoch wall ms: use_pallas=true {wall}, use_pallas=false {wall_plain}")
+    for label, w in walls.items():
+        print(f"[11] per-epoch wall ms, {label}: {w}")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

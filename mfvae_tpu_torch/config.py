@@ -4,8 +4,7 @@ both packages (``tests/test_torch_config.py`` holds the two equal).
 
 The port keeps its own copy because ``mfvae_tpu/__init__.py`` imports JAX.
 Options the port has not implemented yet are refused where they are used
-(``models/mavae.py``, ``training/trainer.py``, ``training/experiment.py``),
-never silently ignored.
+(``models/mavae.py``, ``training/experiment.py``), never silently ignored.
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ from mfvae_tpu_torch.models.mavae import AgentSpec, GroupedBatch, agent_order_co
 class GroupedTransition(NamedTuple):
     """One environment transition in grouped tensor form.
 
-    obs[g], next_obs[g]: [A_g, obs_dim_g]; actions[g]: [A_g] int32;
+    obs[g], next_obs[g]: [A_g, obs_dim_g]; actions[g]: [A_g] int32 or
+    [A_g, act_dim_g] float32;
     rewards: [n_agents] in agent order; done: scalar (any agent done)."""
 
     obs: Tuple[torch.Tensor, ...]

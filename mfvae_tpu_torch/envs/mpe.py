@@ -244,6 +244,15 @@ class SimpleTagEnv:
         )
 
 
+def tag_prey_rel_slice(num_obs: int, n_adv: int, n_good: int) -> slice:
+    """Columns of an adversary's simple_tag observation that hold the
+    relative prey positions, the subspace the tag reward reads:
+    [self_vel(2), self_pos(2), landmark_rel(2L), other_adv_rel(2(n_adv-1)),
+    prey_rel(2·n_good), good_vel...]."""
+    off = 4 + 2 * num_obs + 2 * (n_adv - 1)
+    return slice(off, off + 2 * n_good)
+
+
 _REGISTRY = {"MPE_simple_tag_v3": SimpleTagEnv}
 _NOT_PORTED = (
     "MPE_simple_spread_v3",

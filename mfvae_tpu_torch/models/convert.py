@@ -1,8 +1,10 @@
 """Bridge from the JAX package's MAVAE parameters to the port's.
 
 The port's layers keep flax's layouts and leaf names (``layers.py``), so a
-flax path ``encoders_0/fc1/kernel`` is the port's ``encoders.0.fc1.kernel``:
-only flax's numbered submodule lists differ.  The input is the JAX
+flax path ``encoders_0/fc1/kernel`` is the port's ``encoders.0.fc1.kernel``
+and ``state_decoder/ln0/scale`` is ``state_decoder.ln0.scale``: only
+flax's numbered submodules differ, and ``action_delta_head_<g>`` (named
+per group in flax) is entry g of the port's ``action_delta_heads``.  The input is the JAX
 parameter tree as nested dicts of numpy arrays (``jax.device_get`` of
 ``variables`` or of ``variables["params"]``); this module never imports JAX.
 """
@@ -15,7 +17,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-_LIST_MODULE = re.compile(r"^(encoders|action_encoders)_(\d+)$")
+_LIST_MODULE = re.compile(r"^(encoders|action_encoders|action_delta_head)_(\d+)$")
+_LIST_NAME = {"action_delta_head": "action_delta_heads"}
 
 
 def _flatten(tree: Dict[str, Any], prefix=()):
@@ -35,6 +38,6 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         parts = []
         for p in path:
             m = _LIST_MODULE.match(p)
-            parts.extend([m.group(1), m.group(2)] if m else [p])
+            parts.extend([_LIST_NAME.get(m.group(1), m.group(1)), m.group(2)] if m else [p])
         out[".".join(parts)] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return out

@@ -10,6 +10,12 @@ N(0, 1).  torch's own ``nn.Linear`` default is neither.
 
 ``dtype`` is the compute dtype: inputs and kernels are cast to it before
 each product, and parameters stay float32.
+
+``layernorm=True`` puts a flax ``nn.LayerNorm`` before every Dense of an
+MLP (``ln0..``, ``ln_out``): epsilon 1e-6, statistics in float32 as
+``E[x²] − E[x]²`` clamped at 0 (flax's fast variance), output in the
+compute dtype.  torch's own ``nn.LayerNorm`` differs in epsilon and in how
+it computes the variance.
 """
 
 from __future__ import annotations
@@ -45,8 +51,8 @@ class Dense(nn.Module):
         self.kernel = _param((in_dim, features), device)
         self.bias = _param((features,), device)
         with torch.no_grad():
-            if kernel_init == "ones":
-                self.kernel.fill_(1.0)
+            if kernel_init in ("ones", "zeros"):
+                self.kernel.fill_(1.0 if kernel_init == "ones" else 0.0)
             else:
                 lecun_normal_(self.kernel, in_dim, generator)
             self.bias.zero_()
@@ -55,21 +61,51 @@ class Dense(nn.Module):
         return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis, params ``scale`` (ones) and
+    ``bias`` (zeros) of shape [features]."""
+
+    EPSILON = 1e-6
+
+    def __init__(self, features: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        x = x.to(torch.float32)
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.clamp(torch.mean(x * x, dim=-1, keepdim=True) - mean * mean, min=0.0)
+        y = (x - mean) * (torch.rsqrt(var + self.EPSILON) * self.scale)
+        return (y + self.bias).to(self.dtype)
+
+
 class MLP(nn.Module):
-    """ReLU MLP: hidden widths ``fc0..``, then a linear head ``out``."""
+    """ReLU MLP: hidden widths ``fc0..``, then a linear head ``out``; with
+    ``layernorm``, a LayerNorm before each of them."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
-                 dtype=torch.float32, device=None, generator=None):
+                 dtype=torch.float32, device=None, generator=None, layernorm: bool = False):
         super().__init__()
         self.n_hidden = len(hidden)
+        self.layernorm = layernorm
         widths = [in_dim, *hidden]
         for i, h in enumerate(hidden):
+            if layernorm:
+                setattr(self, f"ln{i}", LayerNorm(widths[i], dtype, device))
             setattr(self, f"fc{i}", Dense(widths[i], h, dtype, device, generator))
+        if layernorm:
+            self.ln_out = LayerNorm(widths[-1], dtype, device)
         self.out = Dense(widths[-1], out_dim, dtype, device, generator)
 
     def forward(self, x):
         for i in range(self.n_hidden):
+            if self.layernorm:
+                x = getattr(self, f"ln{i}")(x)
             x = torch.relu(getattr(self, f"fc{i}")(x))
+        if self.layernorm:
+            x = self.ln_out(x)
         return self.out(x)
 
 
@@ -110,20 +146,31 @@ class StackedDense(nn.Module):
 
 
 class StackedMLP(nn.Module):
-    """ReLU MLP over [B, A, in] with independent per-A parameters."""
+    """ReLU MLP over [B, A, in] with independent per-A parameters.  Its
+    LayerNorms (``layernorm``) normalize the last axis with one [D] scale
+    and bias shared by every stack entry, as flax's do."""
 
     def __init__(self, stack: int, in_dim: int, hidden: Sequence[int], out_dim: int,
-                 dtype=torch.float32, device=None, generator=None):
+                 dtype=torch.float32, device=None, generator=None, layernorm: bool = False):
         super().__init__()
         self.n_hidden = len(hidden)
+        self.layernorm = layernorm
         widths = [in_dim, *hidden]
         for i, h in enumerate(hidden):
+            if layernorm:
+                setattr(self, f"ln{i}", LayerNorm(widths[i], dtype, device))
             setattr(self, f"fc{i}", StackedDense(stack, widths[i], h, dtype, device, generator))
+        if layernorm:
+            self.ln_out = LayerNorm(widths[-1], dtype, device)
         self.out = StackedDense(stack, widths[-1], out_dim, dtype, device, generator)
 
     def forward(self, x):
         for i in range(self.n_hidden):
+            if self.layernorm:
+                x = getattr(self, f"ln{i}")(x)
             x = torch.relu(getattr(self, f"fc{i}")(x))
+        if self.layernorm:
+            x = self.ln_out(x)
         return self.out(x)
 
 

@@ -1,18 +1,23 @@
 """MAVAE — the multi-agent factorized VAE world model, in PyTorch.
 
-A port of ``mfvae_tpu/models/mavae.py`` on its reference structure
-(private latents): per-agent Gaussian encoders over (agent-index embedding
-‖ observation), stacked per agent group; per-agent action embeddings; a
-joint decoder of the next global state and the per-agent reward, as one
-fused two-stack trunk (``fused_decoders``, the default) or as two MLPs.
+A port of ``mfvae_tpu/models/mavae.py``: per-agent Gaussian encoders over
+(agent-index embedding ‖ observation), stacked per agent group; per-agent
+action embeddings (discrete) or action MLPs (continuous); a joint decoder
+of the next global state and the per-agent reward, as one fused two-stack
+trunk (``fused_decoders``, the default) or as two MLPs.  Every model
+option of the JAX package is here: ``det_features``, the
+``shared_private`` latent with its product of experts, ``residual_state``,
+``state_skip``, ``decoder_layernorm``, the two-hot reward head,
+``reward_head_input='pred_state'`` and ``action_delta_head``.
 
 Noise: the JAX model draws eps from a key inside the call.  Here every
 sampling call takes an optional explicit ``eps`` [B, A, F] in *grouped*
-agent order — the shape ``_eps`` draws — or draws it from a
-``torch.Generator``.  Both train-step routes call ``_eps`` the same way,
-so from one generator state they see the same noise.
+agent order — the shape ``_eps`` draws — and, for the shared latent, an
+explicit ``eps_shared`` [B, S]; or it draws both from a
+``torch.Generator``, private first.  Both train-step routes draw the same
+way, so from one generator state they see the same noise.
 
-Options the port has not implemented raise ``NotImplementedError`` at
+``rng_mode='reference'`` and ``remat`` raise ``NotImplementedError`` at
 construction, naming their ROADMAP item.
 """
 
@@ -88,13 +93,20 @@ class AgentSpec:
         return self.perm_from_grouped == tuple(range(self.n_agents))
 
 
-def zero_actions_grouped(spec: AgentSpec, batch_size: Optional[int], device=None):
-    """Per-group zero discrete actions int32 [B, A_g] ([A_g] when
-    ``batch_size`` is None)."""
+def zero_actions_grouped(spec: AgentSpec, batch_size: Optional[int], discrete: bool = True,
+                         device=None):
+    """Per-group zero actions: int32 [B, A_g] (discrete) or float32
+    [B, A_g, act_dim_g] (continuous); no batch axis when ``batch_size`` is
+    None."""
     lead = () if batch_size is None else (batch_size,)
+    if discrete:
+        return tuple(
+            torch.zeros(lead + (len(idxs),), dtype=torch.int32, device=device)
+            for _, idxs in spec.groups
+        )
     return tuple(
-        torch.zeros(lead + (len(idxs),), dtype=torch.int32, device=device)
-        for _, idxs in spec.groups
+        torch.zeros(lead + (len(idxs), ad), dtype=torch.float32, device=device)
+        for (_, ad), idxs in spec.groups
     )
 
 
@@ -102,7 +114,7 @@ class GroupedBatch(NamedTuple):
     """Model input, one entry per AgentSpec group (in group order).
 
     obs[g]:     [B, A_g, obs_dim_g] float
-    actions[g]: [B, A_g] int
+    actions[g]: [B, A_g] int (discrete) or [B, A_g, act_dim_g] float
     """
 
     obs: Tuple[torch.Tensor, ...]
@@ -138,31 +150,24 @@ def state_to_grouped(spec: AgentSpec, state: torch.Tensor) -> Tuple[torch.Tensor
     )
 
 
+
+
 def _refuse_unported(cfg: ModelConfig) -> None:
     off_path = {
-        "det_features": (cfg.det_features != 0, "M10"),
-        "latent_structure=shared_private": (cfg.latent_structure != "private", "M10"),
-        "residual_state": (cfg.residual_state, "M10"),
-        "state_skip": (cfg.state_skip, "M10"),
-        "decoder_layernorm": (cfg.decoder_layernorm, "M10"),
-        "reward_head_mode=twohot": (cfg.reward_head_mode != "linear", "M10"),
-        "reward_head_input=pred_state": (cfg.reward_head_input != "latent", "M10"),
-        "action_delta_head": (cfg.action_delta_head, "M10"),
-        "discrete_act=false (continuous actions)": (not cfg.discrete_act, "M10"),
-        "rng_mode=reference": (cfg.rng_mode != "vectorized", "M20"),
-        "remat": (cfg.remat, "M20"),
+        "rng_mode=reference": cfg.rng_mode != "vectorized",
+        "remat": cfg.remat,
     }
-    for name, (on, item) in off_path.items():
+    for name, on in off_path.items():
         if on:
             raise NotImplementedError(
-                f"model.{name} is not ported to the PyTorch package yet (ROADMAP {item})"
+                f"model.{name} is not ported to the PyTorch package yet (ROADMAP M20)"
             )
 
 
 class MAVAE(nn.Module):
-    """Reference-structure MAVAE.  Public calls return float32 outputs:
-    ``forward`` -> (recon_state [B, Σobs], recon_reward [B, A],
-    mu_all [B, A·F], logvar_all [B, A·F]) in agent order."""
+    """Public calls return float32 outputs in agent order: ``forward`` ->
+    (recon_state [B, Σobs], recon_reward [B, A] — logits [B, A, K] under
+    the two-hot head —, mu_all [B, A·F (+S)], logvar_all [B, A·F (+S)])."""
 
     def __init__(self, spec: AgentSpec, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -170,36 +175,75 @@ class MAVAE(nn.Module):
         _refuse_unported(cfg)
         if cfg.reward_head_init not in ("lecun", "popart"):
             raise ValueError(f"unknown reward_head_init {cfg.reward_head_init!r}")
+        if cfg.latent_structure not in ("private", "shared_private"):
+            raise ValueError(f"unknown latent_structure {cfg.latent_structure!r}")
+        if cfg.reward_head_mode not in ("linear", "twohot"):
+            raise ValueError(f"unknown reward_head_mode {cfg.reward_head_mode!r}")
+        if cfg.reward_head_input not in ("latent", "pred_state"):
+            raise ValueError(f"unknown reward_head_input {cfg.reward_head_input!r}")
+        if cfg.reward_head_input == "pred_state" and cfg.fused_decoders:
+            raise ValueError(
+                "reward_head_input='pred_state' needs fused_decoders=false (the "
+                "fused trunk shares one input; the pred_state reward branch "
+                "runs after the state decode)"
+            )
         self.spec = spec
         self.obs_features = f = cfg.obs_features
         self.fused_decoders = cfg.fused_decoders
+        self.discrete_act = cfg.discrete_act
+        self.shared = cfg.latent_structure == "shared_private"
+        self.shared_latent = s = cfg.shared_latent if self.shared else 0
+        self.det_features = cfg.det_features
+        self.residual_state = cfg.residual_state
+        self.state_skip = cfg.state_skip
+        self.twohot = cfg.reward_head_mode == "twohot"
+        self.reward_bins = cfg.reward_bins
+        self.pred_state_reward = cfg.reward_head_input == "pred_state"
+        self.action_delta_head = cfg.action_delta_head
         self.dtype = dtype = DTYPES[cfg.compute_dtype]
-        n = spec.n_agents
+        n, af, sum_obs = spec.n_agents, cfg.action_features, sum(spec.obs_dims)
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.idx_emb = Embedding(n, cfg.idx_features, **kw)
         self.encoders = nn.ModuleList()
         self.action_encoders = nn.ModuleList()
+        enc_out = 2 * f + 2 * s + self.det_features
         for (obs_dim, act_dim), idxs in spec.groups:
             self.encoders.append(
-                StackedMLP(len(idxs), cfg.idx_features + obs_dim, cfg.encoder_hidden, 2 * f, **kw)
+                StackedMLP(len(idxs), cfg.idx_features + obs_dim, cfg.encoder_hidden, enc_out, **kw)
             )
-            self.action_encoders.append(
-                StackedEmbedding(len(idxs), act_dim, cfg.action_features, **kw)
+            if self.discrete_act:
+                enc = StackedEmbedding(len(idxs), act_dim, af, **kw)
+            else:
+                enc = StackedMLP(len(idxs), act_dim, cfg.action_encoder_hidden, af, **kw)
+            self.action_encoders.append(enc)
+        if self.action_delta_head:
+            # zero-init: the pathway starts as an exact no-op
+            self.action_delta_heads = nn.ModuleList(
+                Dense(af, obs_dim, kernel_init="zeros", **kw) for (obs_dim, _), _ in spec.groups
             )
-        dec_in = n * (f + cfg.action_features)
+        dec_in = n * (f + af) + s + n * self.det_features
+        if self.state_skip:
+            dec_in += sum_obs
         hidden = tuple(cfg.decoder_hidden)
+        ln = cfg.decoder_layernorm
+        reward_out = n * cfg.reward_bins if self.twohot else n
         if self.fused_decoders:
             # state + reward decoders share hidden widths: one two-stack trunk
-            self.decoder_trunk = StackedMLP(2, dec_in, hidden[:-1], hidden[-1], **kw)
-            self.state_head = Dense(hidden[-1], sum(spec.obs_dims), **kw)
-            self.reward_head = Dense(hidden[-1], n, **kw)
+            self.decoder_trunk = StackedMLP(2, dec_in, hidden[:-1], hidden[-1], layernorm=ln, **kw)
+            self.state_head = Dense(hidden[-1], sum_obs, **kw)
+            self.reward_head = Dense(hidden[-1], reward_out, **kw)
         else:
-            self.state_decoder = MLP(dec_in, hidden, sum(spec.obs_dims), **kw)
-            self.reward_decoder = MLP(dec_in, hidden, n, **kw)
-        # PopArt output head: all-ones kernel under 'popart', lecun otherwise
-        self.reward_linear = Dense(
-            n, n, kernel_init="ones" if cfg.reward_head_init == "popart" else "lecun", **kw
-        )
+            self.state_decoder = MLP(dec_in, hidden, sum_obs, layernorm=ln, **kw)
+            r_in = dec_in
+            if self.pred_state_reward:
+                r_in = sum_obs + n * af + (sum_obs if self._needs_base else 0)
+            self.reward_decoder = MLP(r_in, hidden, reward_out, layernorm=ln, **kw)
+        if not self.twohot:
+            # PopArt output head: all-ones kernel under 'popart', lecun
+            # otherwise; the two-hot head has none (as the JAX tree)
+            self.reward_linear = Dense(
+                n, n, kernel_init="ones" if cfg.reward_head_init == "popart" else "lecun", **kw
+            )
         self.register_buffer(
             "_perm", torch.tensor(spec.perm_from_grouped, device=device), persistent=False
         )
@@ -209,11 +253,22 @@ class MAVAE(nn.Module):
                     generator: Optional[torch.Generator] = None) -> "MAVAE":
         return cls(spec, cfg, device=device, generator=generator)
 
+    @property
+    def _needs_base(self) -> bool:
+        return self.residual_state or self.state_skip
+
+    def _base(self, batch: GroupedBatch) -> Optional[torch.Tensor]:
+        """The current global state [B, Σobs] where the decoder reads it."""
+        return agent_order_concat(self.spec, batch.obs) if self._needs_base else None
+
     # ---------------------------------------------------------------- encode
     def encode(self, batch: GroupedBatch, agent_ids=None):
-        """(mu, logvar, action_emb), each [B, A, ·] in *grouped* agent order."""
-        f = self.obs_features
-        mus, logvars, aembs = [], [], []
+        """(mu, logvar, action_emb, shared_experts, det): the first three
+        [B, A, ·] in *grouped* agent order; ``shared_experts`` the per-agent
+        (mu, logvar) [B, A, S] over the shared latent, or None; ``det``
+        [B, A, D] (grouped order) or None."""
+        f, s = self.obs_features, self.shared_latent
+        mus, logvars, aembs, smus, slvs, dets = [], [], [], [], [], []
         for g, (_, idxs) in enumerate(self.spec.groups):
             obs = batch.obs[g]
             if agent_ids is None:
@@ -221,23 +276,38 @@ class MAVAE(nn.Module):
             else:
                 ids = agent_ids[g]
             enc_in = torch.cat([self.idx_emb(ids), obs.to(self.dtype)], dim=-1)
-            latent = self.encoders[g](enc_in)  # [B, A_g, 2F]
+            latent = self.encoders[g](enc_in)  # [B, A_g, 2F (+2S) (+D)]
             mus.append(latent[..., :f])
             logvars.append(latent[..., f : 2 * f])
-            aembs.append(self.action_encoders[g](batch.actions[g]))
-        return torch.cat(mus, dim=1), torch.cat(logvars, dim=1), torch.cat(aembs, dim=1)
+            off = 2 * f
+            if self.shared:
+                smus.append(latent[..., off : off + s])
+                slvs.append(latent[..., off + s : off + 2 * s])
+                off += 2 * s
+            if self.det_features:
+                dets.append(latent[..., off:])
+            act = batch.actions[g]
+            aembs.append(self.action_encoders[g](act if self.discrete_act else act.to(self.dtype)))
+        experts = (torch.cat(smus, dim=1), torch.cat(slvs, dim=1)) if self.shared else None
+        det = torch.cat(dets, dim=1) if self.det_features else None
+        return torch.cat(mus, dim=1), torch.cat(logvars, dim=1), torch.cat(aembs, dim=1), experts, det
 
     # ---------------------------------------------------------- reparam/eps
-    def _eps(self, generator: Optional[torch.Generator], shape, eps=None) -> torch.Tensor:
-        """The noise for ``shape`` = [B, A, F]: ``eps`` itself when given,
-        else one standard-normal draw from ``generator``."""
-        if eps is not None:
-            if tuple(eps.shape) != tuple(shape):
-                raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {tuple(shape)}")
-            return eps.to(torch.float32)
+    @staticmethod
+    def _draw(generator: Optional[torch.Generator], shape, given, name: str) -> torch.Tensor:
+        """``given`` itself when it is passed, else one standard-normal draw
+        of ``shape`` from ``generator``."""
+        if given is not None:
+            if tuple(given.shape) != tuple(shape):
+                raise ValueError(f"{name} has shape {tuple(given.shape)}, expected {tuple(shape)}")
+            return given.to(torch.float32)
         if generator is None:
             raise ValueError("a sampling call needs a generator or an explicit eps")
         return torch.randn(tuple(shape), generator=generator, device=generator.device)
+
+    def _eps(self, generator: Optional[torch.Generator], shape, eps=None) -> torch.Tensor:
+        """The private noise for ``shape`` = [B, A, F]."""
+        return self._draw(generator, shape, eps, "eps")
 
     @staticmethod
     def reparameterize(mu, logvar, eps):
@@ -245,63 +315,147 @@ class MAVAE(nn.Module):
         std = torch.exp(0.5 * logvar.to(torch.float32))
         return mu.to(torch.float32) + eps * std
 
+    @staticmethod
+    def poe(experts):
+        """Product of the per-agent Gaussian experts [B, A, S] with a unit
+        prior: precision T = 1 + Σ_a exp(−lv_a), mu = Σ_a mu_a exp(−lv_a) / T,
+        logvar = −log T."""
+        mu_e, lv_e = experts
+        prec = torch.exp(-lv_e.to(torch.float32))
+        total = 1.0 + torch.sum(prec, dim=1)  # [B, S]
+        mu = torch.sum(mu_e.to(torch.float32) * prec, dim=1) / total
+        return mu, -torch.log(total)
+
+    def _shared_sample(self, experts, generator, eps_shared):
+        """(z_shared, mu_s, logvar_s) from the PoE posterior."""
+        mu_s, logvar_s = self.poe(experts)
+        eps_s = self._draw(generator, mu_s.shape, eps_shared, "eps_shared")
+        return mu_s + eps_s * torch.exp(0.5 * logvar_s), mu_s, logvar_s
+
     def _to_agent_order(self, *xs):
         if self.spec.grouped_is_identity:
             return xs
-        return tuple(x.index_select(1, self._perm) for x in xs)
+        return tuple(None if x is None else x.index_select(1, self._perm) for x in xs)
 
     # ---------------------------------------------------------------- decode
-    def decode(self, z: torch.Tensor, aemb: torch.Tensor):
-        """z, aemb: [B, A, F] in *agent* order -> (recon_state [B, Σobs],
-        recon_reward [B, A]), both float32."""
+    def _add_action_delta(self, recon: torch.Tensor, aemb: torch.Tensor) -> torch.Tensor:
+        """The direct action -> own-obs-delta pathway (``action_delta_head``)."""
+        deltas = tuple(
+            self.action_delta_heads[g](aemb[:, list(idxs), :])
+            for g, (_, idxs) in enumerate(self.spec.groups)
+        )
+        return recon + agent_order_concat(self.spec, deltas).to(recon.dtype)
+
+    def decode(self, z: torch.Tensor, aemb: torch.Tensor, z_shared=None, det=None,
+               base_state=None):
+        """z, aemb [B, A, F] and det [B, A, D] in *agent* order, z_shared
+        [B, S] -> (recon_state [B, Σobs], recon_reward [B, A] or logits
+        [B, A, K]), both float32.  ``base_state`` [B, Σobs] (the current
+        global state) is required under ``residual_state``/``state_skip``."""
         b = z.shape[0]
-        flat = torch.cat([z.reshape(b, -1), aemb.reshape(b, -1)], dim=-1).to(self.dtype)
+        if self._needs_base and base_state is None:
+            raise ValueError(
+                "residual_state/state_skip: decode() needs base_state (the "
+                "current global state, agent_order_concat(spec, obs))"
+            )
+        parts = [z.reshape(b, -1), aemb.reshape(b, -1)]
+        if z_shared is not None:
+            parts.append(z_shared)
+        if det is not None:
+            parts.append(det.reshape(b, -1))
+        if self.state_skip:
+            parts.append(base_state)
+        flat = torch.cat([p.to(torch.float32) for p in parts], dim=-1).to(self.dtype)
         if self.fused_decoders:
             both = flat[:, None, :].expand(b, 2, flat.shape[-1])
             h = torch.relu(self.decoder_trunk(both))  # [B, 2, last_hidden]
             recon_state = self.state_head(h[:, 0])
-            recon_reward = self.reward_linear(self.reward_head(h[:, 1]))
+            if self.action_delta_head:
+                recon_state = self._add_action_delta(recon_state, aemb)
+            recon_reward = self.reward_head(h[:, 1])
         else:
             recon_state = self.state_decoder(flat)
-            recon_reward = self.reward_linear(self.reward_decoder(flat))
-        return recon_state.to(torch.float32), recon_reward.to(torch.float32)
+            if self.action_delta_head:
+                recon_state = self._add_action_delta(recon_state, aemb)
+            r_in = flat
+            if self.pred_state_reward:
+                # reward from the predicted geometry, with no gradient into
+                # the state path
+                ns = recon_state.to(torch.float32)
+                if self.residual_state:
+                    ns = ns + base_state.to(torch.float32)
+                parts_r = [ns.detach(), aemb.reshape(b, -1).to(torch.float32)]
+                if base_state is not None:
+                    parts_r.append(base_state.to(torch.float32))
+                r_in = torch.cat(parts_r, dim=-1).to(self.dtype)
+            recon_reward = self.reward_decoder(r_in)
+        if self.twohot:
+            recon_reward = recon_reward.reshape(b, self.spec.n_agents, self.reward_bins)
+        else:
+            recon_reward = self.reward_linear(recon_reward)
+        recon_state = recon_state.to(torch.float32)
+        if self.residual_state:
+            recon_state = recon_state + base_state.to(torch.float32)
+        return recon_state, recon_reward.to(torch.float32)
 
     # ------------------------------------------------------------ fused call
     def fused_call(self, batch: GroupedBatch, agent_ids=None,
-                   generator: Optional[torch.Generator] = None, eps=None):
+                   generator: Optional[torch.Generator] = None, eps=None, eps_shared=None):
         """Forward through the fused reparam+KL kernel (ops/fused_elbo.py).
-        Returns (recon_state, recon_reward, kl_rows [B, A]); the train step
-        reduces kl as mean_B(sum_A), which equals kl_gaussian."""
+        Returns (recon_state, recon_reward, kl_rows [B, A (+1)]): the shared
+        latent's KL is one extra column, so the train step's mean_B(sum_A)
+        equals kl_gaussian over the whole posterior."""
         from mfvae_tpu_torch.ops.fused_elbo import fused_reparam_kl
 
-        mu_g, logvar_g, aemb_g = self.encode(batch, agent_ids)
+        mu_g, logvar_g, aemb_g, experts, det = self.encode(batch, agent_ids)
         eps = self._eps(generator, mu_g.shape, eps)
         z_g, kl_rows = fused_reparam_kl(
             mu_g.to(torch.float32), logvar_g.to(torch.float32), eps
         )
-        z, aemb = self._to_agent_order(z_g, aemb_g)
-        recon_state, recon_reward = self.decode(z, aemb)
+        z, aemb, det = self._to_agent_order(z_g, aemb_g, det)
+        z_shared = None
+        if experts is not None:
+            z_shared, mu_s, logvar_s = self._shared_sample(experts, generator, eps_shared)
+            kl_s = -0.5 * torch.sum(1.0 + logvar_s - mu_s * mu_s - torch.exp(logvar_s), dim=-1)
+            kl_rows = torch.cat([kl_rows, kl_s[:, None]], dim=1)
+        recon_state, recon_reward = self.decode(z, aemb, z_shared, det, self._base(batch))
         return recon_state, recon_reward, kl_rows
 
     # ------------------------------------------------------------- mean call
     def mean_call(self, batch: GroupedBatch, agent_ids=None):
-        """Deterministic posterior-mean forward (z = mu), the serving
-        prediction.  Returns (recon_state, recon_reward)."""
-        mu_g, _, aemb_g = self.encode(batch, agent_ids)
-        mu, aemb = self._to_agent_order(mu_g, aemb_g)
-        return self.decode(mu.to(torch.float32), aemb)
+        """Deterministic posterior-mean forward (z = mu, and the PoE mean
+        for the shared latent), the serving prediction.  Returns
+        (recon_state, recon_reward [B, A]); the two-hot head's logits are
+        collapsed to their expectation."""
+        mu_g, _, aemb_g, experts, det = self.encode(batch, agent_ids)
+        mu, aemb, det = self._to_agent_order(mu_g, aemb_g, det)
+        z_shared = self.poe(experts)[0] if experts is not None else None
+        recon_state, recon_reward = self.decode(
+            mu.to(torch.float32), aemb, z_shared, det, self._base(batch)
+        )
+        if self.twohot:
+            from mfvae_tpu_torch.models.losses import twohot_bins, twohot_expectation
+
+            recon_reward = twohot_expectation(
+                recon_reward, twohot_bins(self.reward_bins, recon_reward.device)
+            )
+        return recon_state, recon_reward
 
     # ------------------------------------------------------------------ call
     def forward(self, batch: GroupedBatch, agent_ids=None,
-                generator: Optional[torch.Generator] = None, eps=None):
-        mu_g, logvar_g, aemb_g = self.encode(batch, agent_ids)
+                generator: Optional[torch.Generator] = None, eps=None, eps_shared=None):
+        mu_g, logvar_g, aemb_g, experts, det = self.encode(batch, agent_ids)
         z_g = self.reparameterize(mu_g, logvar_g, self._eps(generator, mu_g.shape, eps))
-        mu, logvar, aemb, z = self._to_agent_order(mu_g, logvar_g, aemb_g, z_g)
-        recon_state, recon_reward = self.decode(z, aemb)
+        mu, logvar, aemb, z, det = self._to_agent_order(mu_g, logvar_g, aemb_g, z_g, det)
         b = mu.shape[0]
-        return (
-            recon_state,
-            recon_reward,
-            mu.to(torch.float32).reshape(b, -1),
-            logvar.to(torch.float32).reshape(b, -1),
-        )
+        mu_all = mu.to(torch.float32).reshape(b, -1)
+        logvar_all = logvar.to(torch.float32).reshape(b, -1)
+        z_shared = None
+        if experts is not None:
+            z_shared, mu_s, logvar_s = self._shared_sample(experts, generator, eps_shared)
+            # the shared dims appended: KL over the concatenation is
+            # KL(private) + KL(shared)
+            mu_all = torch.cat([mu_all, mu_s], dim=-1)
+            logvar_all = torch.cat([logvar_all, logvar_s], dim=-1)
+        recon_state, recon_reward = self.decode(z, aemb, z_shared, det, self._base(batch))
+        return recon_state, recon_reward, mu_all, logvar_all

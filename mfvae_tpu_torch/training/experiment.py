@@ -25,6 +25,7 @@ from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, zero_actions_grouped
 from mfvae_tpu_torch.rng import make_streams
 from mfvae_tpu_torch.training.checkpoint import CheckpointManager, NullCheckpointManager
 from mfvae_tpu_torch.training.metrics import MetricsLogger
+from mfvae_tpu_torch.training.popart import PopArtState
 from mfvae_tpu_torch.training.trainer import (
     EnvCarry,
     EpochCarry,
@@ -68,9 +69,9 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
             raise NotImplementedError(
                 f"{name} is not ported to the PyTorch package yet (ROADMAP {item})"
             )
-    # train.mode and the model/loss options are refused where they are
-    # used (make_train_step, MAVAE); fused_epoch, epochs_per_dispatch and
-    # eval_vmap shape only the JAX package's XLA program and change nothing
+    # model.rng_mode=reference and model.remat are refused where they are
+    # used (MAVAE); fused_epoch, epochs_per_dispatch and eval_vmap shape
+    # only the JAX package's XLA program and change nothing
 
 
 class Experiment:
@@ -109,6 +110,20 @@ class Experiment:
     # ------------------------------------------------------------ lifecycle
     def setup(self):
         cfg = self.cfg
+        if cfg.model.reward_head_mode == "twohot":
+            # PopArt rescales a scalar output head and K3 scores scalar
+            # huber: neither is defined for categorical reward logits
+            if cfg.train.mode != "Adam":
+                raise ValueError(
+                    "model.reward_head_mode='twohot' requires train.mode='Adam' "
+                    "(ART/POPART normalize scalar reward targets; the two-hot "
+                    "head is categorical)"
+                )
+            if cfg.model.use_pallas:
+                raise ValueError(
+                    "model.reward_head_mode='twohot' is incompatible with "
+                    "model.use_pallas (the fused kernel scores scalar huber)"
+                )
         obs, env_state = self.env.reset_stacked(self.streams["reset"])
         example = self._example_transition(obs, env_state)
         model = MAVAE.from_config(
@@ -136,11 +151,15 @@ class Experiment:
         return self
 
     def _example_transition(self, obs, env_state) -> GroupedTransition:
-        zero_actions = torch.zeros(self.spec.n_agents, dtype=torch.int32, device=self.device)
+        discrete = self.cfg.env.discrete_actions
+        if discrete:
+            zero_actions = torch.zeros(self.spec.n_agents, dtype=torch.int32, device=self.device)
+        else:
+            zero_actions = torch.zeros(self.spec.n_agents, self.spec.act_dims[0], device=self.device)
         next_obs, _, rewards, _, _ = self.env.step_stacked(env_state, zero_actions)
         return GroupedTransition(
             obs=stacked_to_grouped(self.spec, obs),
-            actions=zero_actions_grouped(self.spec, None, self.device),
+            actions=zero_actions_grouped(self.spec, None, discrete, self.device),
             next_obs=stacked_to_grouped(self.spec, next_obs),
             rewards=rewards,
             done=torch.zeros((), device=self.device),
@@ -159,6 +178,7 @@ class Experiment:
             "model": ts.model.state_dict(),
             "optimizer": ts.optimizer.state_dict(),
             "step": ts.step,
+            "popart": list(ts.popart),
             "buffer": buffer(c.buffer_state),
             "test_buffer": buffer(c.test_buffer_state),
             "env_obs": list(c.env.obs),
@@ -179,6 +199,7 @@ class Experiment:
         ts.model.load_state_dict(p["model"])
         ts.optimizer.load_state_dict(p["optimizer"])
         ts.step = int(p["step"])
+        ts.popart = PopArtState(*(x.to(self.device) for x in p["popart"]))
 
         def buffer(b: BufferState, saved) -> BufferState:
             leaves = iter(saved["data"])

@@ -1,17 +1,22 @@
 """Train/test steps and the epoch program (mirror of
-``mfvae_tpu/training/trainer.py`` in Adam mode).
+``mfvae_tpu/training/trainer.py``), in the optimizer modes Adam, ART and
+POPART.
 
 PyTorch runs eagerly, so the JAX package's scans become Python loops and
 its vmapped eval becomes one forward over every eval batch at once (the
-eval steps are independent given the parameters, and each step's loss is a
-mean over an equal-sized batch, so the mean of the per-step means is the
-mean over the joined batch).  The train state is updated in place: one
-forward and one backward per train step, then one Adam update.
+eval steps are independent given the parameters).  Where each step's loss
+is a mean over an equal-sized batch, the mean of the per-step means is the
+mean over the joined batch, and the losses are taken over the joined
+batch.  That argument stops at ``loss.contact_weight > 0``: the weighted
+state loss divides by each batch's own weight sum, so there the losses are
+taken per eval batch and averaged, as the JAX package does.  The train
+state is updated in place: one forward and one backward per train step,
+then one Adam update.
 
-Each epoch: collect ``sample_num`` random-action env steps into the train
-buffer, run ``train_num`` train steps on uniform samples, collect
-``sample_num`` more steps into the test buffer, evaluate ``test_num``
-batches.  Noise comes from named generators (``rng.make_streams``):
+Each epoch: collect ``sample_num`` random-action env steps (discrete, or
+uniform in the Box for continuous actions) into the train buffer, run
+``train_num`` train steps on uniform samples, collect ``sample_num`` more
+steps into the test buffer, evaluate ``test_num`` batches.  Noise comes from named generators (``rng.make_streams``):
 actions from "act", env resets from "reset", buffer samples from "sample",
 train-step eps from "train", eval samples and eps from "eval".
 """
@@ -27,18 +32,22 @@ import torch
 from mfvae_tpu_torch.config import ExperimentConfig, LossConfig, TrainConfig
 from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer
 from mfvae_tpu_torch.data.transitions import GroupedTransition, VaeBatch, vae_batch_from_grouped
-from mfvae_tpu_torch.models.losses import LossOutputs, combine_losses, elbo_losses, refuse_unported
+from mfvae_tpu_torch.envs.mpe import tag_prey_rel_slice
+from mfvae_tpu_torch.models.losses import LossOutputs, combine_losses, elbo_losses
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec
 from mfvae_tpu_torch.ops.fused_elbo import huber_mean
+from mfvae_tpu_torch.training.popart import (
+    PopArtState,
+    art,
+    init_popart,
+    normalize,
+    pop_rescale_head,
+)
 
 
-def _refuse_mode(mode: str) -> None:
+def _check_mode(mode: str) -> None:
     if mode not in ("Adam", "ART", "POPART"):
         raise ValueError(f"unknown train.mode {mode!r}")
-    if mode != "Adam":
-        raise NotImplementedError(
-            f"train.mode={mode!r} (PopArt/ART) is not ported yet (ROADMAP M9)"
-        )
 
 
 def make_lr(cfg: TrainConfig) -> Callable[[int], float]:
@@ -75,11 +84,13 @@ def make_lr(cfg: TrainConfig) -> Callable[[int], float]:
 
 @dataclass
 class TrainState:
-    """The model, its Adam optimizer and the count of updates applied."""
+    """The model, its Adam optimizer, the count of updates applied and the
+    PopArt statistics (kept in every mode, as the JAX package keeps them)."""
 
     model: MAVAE
     optimizer: torch.optim.Optimizer
     lr_fn: Callable[[int], float]
+    popart: PopArtState
     grad_clip: float = 0.0
     step: int = 0
 
@@ -88,7 +99,11 @@ def create_train_state(model: MAVAE, cfg: TrainConfig) -> TrainState:
     # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8, the same update rule
     lr_fn = make_lr(cfg)
     opt = torch.optim.Adam(model.parameters(), lr=lr_fn(0), betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model=model, optimizer=opt, lr_fn=lr_fn, grad_clip=cfg.grad_clip)
+    device = next(model.parameters()).device
+    return TrainState(
+        model=model, optimizer=opt, lr_fn=lr_fn,
+        popart=init_popart(model.spec.n_agents, device), grad_clip=cfg.grad_clip,
+    )
 
 
 def _kl_scale(loss_cfg: LossConfig, step: int) -> Optional[float]:
@@ -110,17 +125,27 @@ def _clip_by_global_norm(params, max_norm: float) -> None:
 def make_train_step(
     loss_cfg: LossConfig,
     mode: str = "Adam",
+    popart_beta: float = 3e-4,
     use_pallas: bool = False,
-    s_col_weight=None,
+    s_col_weight: Optional[torch.Tensor] = None,
 ) -> Callable:
-    """(state, batch: VaeBatch, generator=None, eps=None) -> (state,
-    LossOutputs).  The state is updated in place and returned.
+    """(state, batch: VaeBatch, generator=None, eps=None, eps_shared=None)
+    -> (state, LossOutputs).  The state is updated in place and returned.
+
+    Under ART and POPART the PopArt stats take one ``art`` update from the
+    batch's rewards; POPART then rescales the reward head from the old
+    stats to the new (Adam's moments are left as they are, as optax leaves
+    them); the reward target is the rewards normalized by the new stats.
 
     ``use_pallas`` routes the forward through ``MAVAE.fused_call`` (kernels
     K1/K2) and the reconstruction losses through ``huber_mean`` (K3), under
-    the JAX package's guards.  Both routes draw eps from ``generator`` in
-    the same way, or take ``eps`` [B, A, F] (grouped order) as given."""
-    _refuse_mode(mode)
+    the JAX package's guards.  ``s_col_weight`` ([Σobs], from
+    ``build_s_col_weight``) weights the state branch's columns.  Both
+    routes draw eps from ``generator`` in the same way, or take ``eps``
+    [B, A, F] (grouped order) and ``eps_shared`` [B, S] as given."""
+    _check_mode(mode)
+    use_art = mode in ("ART", "POPART")
+    use_pop = mode == "POPART"
     if use_pallas:
         if loss_cfg.free_bits != 0.0:
             raise ValueError("the use_pallas path has no free-bits support")
@@ -131,24 +156,33 @@ def make_train_step(
                 "the use_pallas path has no weighted-state-branch support "
                 "(loss.contact_weight / loss.prey_dist_weight)"
             )
-    if s_col_weight is not None:
-        raise NotImplementedError("loss.prey_dist_weight is not ported yet (ROADMAP M10)")
-    refuse_unported(loss_cfg)
+    if use_art and loss_cfg.contact_weight != 0.0:
+        raise ValueError(
+            "loss.contact_weight reads raw reward targets; ART/POPART "
+            "normalization is unsupported — use train.mode='Adam'"
+        )
 
-    def train_step(state: TrainState, batch: VaeBatch, generator=None, eps=None):
+    def train_step(state: TrainState, batch: VaeBatch, generator=None, eps=None, eps_shared=None):
         model = state.model
+        reward_targets = batch.rewards
+        if use_art:
+            pa_new = art(state.popart, batch.rewards, popart_beta)
+            if use_pop:
+                pop_rescale_head(model, state.popart, pa_new)
+            state.popart = pa_new
+            reward_targets = normalize(pa_new, batch.rewards)
         kl_scale = _kl_scale(loss_cfg, state.step)
         if use_pallas:
-            recon_s, recon_r, kl_rows = model.fused_call(batch.inputs, None, generator, eps)
+            recon_s, recon_r, kl_rows = model.fused_call(batch.inputs, None, generator, eps, eps_shared)
             s_loss = huber_mean(batch.next_state, recon_s, loss_cfg.huber_delta)
-            r_loss = huber_mean(batch.rewards, recon_r, loss_cfg.huber_delta)
+            r_loss = huber_mean(reward_targets, recon_r, loss_cfg.huber_delta)
             kl_loss = torch.mean(torch.sum(kl_rows, dim=1))
             out = combine_losses(s_loss, r_loss, kl_loss, loss_cfg, kl_scale)
         else:
-            recon_s, recon_r, mu, logvar = model(batch.inputs, None, generator, eps)
+            recon_s, recon_r, mu, logvar = model(batch.inputs, None, generator, eps, eps_shared)
             out = elbo_losses(
-                recon_s, recon_r, batch.next_state, batch.rewards, mu, logvar,
-                loss_cfg, kl_scale=kl_scale,
+                recon_s, recon_r, batch.next_state, reward_targets, mu, logvar,
+                loss_cfg, kl_scale=kl_scale, s_col_weight=s_col_weight,
             )
         state.optimizer.zero_grad(set_to_none=True)
         out.loss.backward()
@@ -163,16 +197,59 @@ def make_train_step(
     return train_step
 
 
-def make_test_step(loss_cfg: LossConfig, mode: str = "Adam") -> Callable:
-    """Eval step: forward + losses, no gradient."""
-    _refuse_mode(mode)
+def make_test_step(
+    loss_cfg: LossConfig, mode: str = "Adam", s_col_weight: Optional[torch.Tensor] = None
+) -> Callable:
+    """Eval step: forward + losses, no gradient.  Under ART/POPART the
+    reward target is normalized by the state's PopArt stats.
+
+    ``test_step(state, batch, generator=None, eps=None, eps_shared=None,
+    n_batches=1)``: ``batch`` may join ``n_batches`` equal eval batches.
+    One forward covers them all; under ``loss.contact_weight`` the losses
+    are taken per batch and averaged, elsewhere over the joined batch
+    (the same number; see the module docstring)."""
+    _check_mode(mode)
+    use_art = mode in ("ART", "POPART")
+    per_batch = loss_cfg.contact_weight > 0.0
 
     @torch.no_grad()
-    def test_step(state: TrainState, batch: VaeBatch, generator=None, eps=None) -> LossOutputs:
-        recon_s, recon_r, mu, logvar = state.model(batch.inputs, None, generator, eps)
-        return elbo_losses(recon_s, recon_r, batch.next_state, batch.rewards, mu, logvar, loss_cfg)
+    def test_step(state: TrainState, batch: VaeBatch, generator=None, eps=None, eps_shared=None,
+                  n_batches: int = 1) -> LossOutputs:
+        reward_targets = batch.rewards
+        if use_art:
+            reward_targets = normalize(state.popart, batch.rewards)
+        recon_s, recon_r, mu, logvar = state.model(batch.inputs, None, generator, eps, eps_shared)
+        parts = (recon_s, recon_r, batch.next_state, reward_targets, mu, logvar)
+        if not per_batch or n_batches == 1:
+            return elbo_losses(*parts, loss_cfg, s_col_weight=s_col_weight)
+        outs = [
+            elbo_losses(*chunk, loss_cfg, s_col_weight=s_col_weight)
+            for chunk in zip(*(x.chunk(n_batches) for x in parts))
+        ]
+        return LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
 
     return test_step
+
+
+def build_s_col_weight(spec: AgentSpec, cfg: ExperimentConfig, device=None) -> Optional[torch.Tensor]:
+    """Column weights [Σobs] for ``loss.prey_dist_weight``: each
+    adversary's relative-prey observation columns (``tag_prey_rel_slice``)
+    count (1 + prey_dist_weight)x in the state branch.  None when the lever
+    is off."""
+    if cfg.loss.prey_dist_weight <= 0.0:
+        return None
+    if "simple_tag" not in cfg.env.name:
+        raise ValueError(
+            f"loss.prey_dist_weight knows the simple_tag obs layout only, got env {cfg.env.name!r}"
+        )
+    n_adv = cfg.env.num_adversaries
+    od_adv = spec.obs_dims[0]
+    sl = tag_prey_rel_slice(cfg.env.num_obs, n_adv, cfg.env.num_good_agents)
+    w = torch.ones(sum(spec.obs_dims), dtype=torch.float32)
+    for a in range(n_adv):
+        base = a * od_adv
+        w[base + sl.start : base + sl.stop] += cfg.loss.prey_dist_weight
+    return w.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -210,22 +287,38 @@ def stacked_to_grouped(spec: AgentSpec, stacked_obs) -> Tuple[torch.Tensor, ...]
 
 
 def make_action_sampler(env, spec: AgentSpec):
-    """Uniform random discrete actions, each agent within its own range.
+    """Uniform random actions: discrete, each agent within its own range,
+    or continuous, uniform in the Box bounds.
 
     Returns ``(sample, group_actions)``: ``sample(generator, leading=())``
-    -> int32 [*leading, A]; ``group_actions(actions)`` -> per-group tuple."""
-    if not getattr(env, "discrete_actions", True):
-        raise NotImplementedError("continuous-action collection is not ported yet (ROADMAP M10)")
+    -> int32 [*leading, A] or float32 [*leading, A, act_dim];
+    ``group_actions(actions)`` -> per-group tuple along the agent axis."""
     device = env.device
-    act_dims = torch.tensor(spec.act_dims, dtype=torch.float32, device=device)
     group_idx = [torch.tensor(idxs, device=device) for _, idxs in spec.groups]
+    if getattr(env, "discrete_actions", True):
+        act_dims = torch.tensor(spec.act_dims, dtype=torch.float32, device=device)
+
+        def sample(generator, leading=()):
+            u = torch.rand(*leading, spec.n_agents, generator=generator, device=device)
+            return torch.minimum((u * act_dims).to(torch.int32), act_dims.to(torch.int32) - 1)
+
+        def group_actions(actions):
+            return tuple(actions.index_select(-1, idx) for idx in group_idx)
+
+        return sample, group_actions
+
+    if len(set(spec.act_dims)) != 1:
+        raise ValueError(f"continuous stepping needs one common act_dim, got {spec.act_dims}")
+    act_dim = spec.act_dims[0]
+    space = env.action_space(env.agents[0])
+    lo, hi = float(space.low), float(space.high)
 
     def sample(generator, leading=()):
-        u = torch.rand(*leading, spec.n_agents, generator=generator, device=device)
-        return torch.minimum((u * act_dims).to(torch.int32), act_dims.to(torch.int32) - 1)
+        u = torch.rand(*leading, spec.n_agents, act_dim, generator=generator, device=device)
+        return u * (hi - lo) + lo
 
     def group_actions(actions):
-        return tuple(actions.index_select(-1, idx) for idx in group_idx)
+        return tuple(actions.index_select(-2, idx) for idx in group_idx)
 
     return sample, group_actions
 
@@ -239,8 +332,12 @@ def make_phase_fns(
     streams: Dict[str, torch.Generator],
 ):
     """(collect, train_phase, test_phase) closures over the run's streams."""
-    train_step = make_train_step(cfg.loss, cfg.train.mode, use_pallas=cfg.model.use_pallas)
-    test_step = make_test_step(cfg.loss, cfg.train.mode)
+    s_col_weight = build_s_col_weight(spec, cfg, env.device)
+    train_step = make_train_step(
+        cfg.loss, cfg.train.mode, cfg.train.popart_beta,
+        use_pallas=cfg.model.use_pallas, s_col_weight=s_col_weight,
+    )
+    test_step = make_test_step(cfg.loss, cfg.train.mode, s_col_weight=s_col_weight)
     sample_actions, group_actions = make_action_sampler(env, spec)
 
     def collect(env_c: EnvCarry, buf_state: BufferState, which_buffer: ItemBuffer):
@@ -277,7 +374,7 @@ def make_phase_fns(
         n = cfg.train.test_num * test_buffer.sample_batch_size
         batch = test_buffer.sample(buf_state, streams["eval"], batch_size=n)
         vb = vae_batch_from_grouped(spec, batch.experience)
-        return test_step(train_state, vb, streams["eval"])
+        return test_step(train_state, vb, streams["eval"], n_batches=cfg.train.test_num)
 
     return collect, train_phase, test_phase
 

@@ -2,13 +2,18 @@
 CUDA card.
 
 Runs the default config (simple_tag 30/10/20, batch 128, bf16, full
-widths) with model.use_pallas true and false.  Per route: one warm-up
+widths), or the YAML config named by ``--config``, with model.use_pallas
+true and false.  Per route: one warm-up
 epoch, then ``--epochs`` epochs whose four phases (collect, train,
 test-collect, eval) are each timed on the host clock between device syncs,
 then one epoch under torch.profiler for the device's busy time and its
 kernels by device time.  Prints one JSON line per route.
 
-    python scripts/torch_epoch_breakdown.py [--epochs 3]
+    python scripts/torch_epoch_breakdown.py [--epochs 3] [--config examples/world_model.yaml]
+        [--out results/breakdown.jsonl]
+
+Kernel names are cut to 160 characters.  ``--out`` appends the same JSON
+lines to a file.
 """
 
 import argparse
@@ -23,7 +28,7 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from mfvae_tpu_torch.config import ExperimentConfig  # noqa: E402
+from mfvae_tpu_torch.config import ExperimentConfig, load_config  # noqa: E402
 from mfvae_tpu_torch.ops import fused_elbo as ops  # noqa: E402
 from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
 from mfvae_tpu_torch.training.trainer import EpochCarry, make_phase_fns  # noqa: E402
@@ -37,8 +42,8 @@ def timed(fn, *args):
     return out, 1e3 * (time.perf_counter() - t)
 
 
-def breakdown(use_pallas: bool, epochs: int, tmp: str) -> dict:
-    cfg = ExperimentConfig()
+def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "") -> dict:
+    cfg = load_config(config) if config else ExperimentConfig()
     cfg.model.use_pallas = use_pallas
     cfg.train.log_dir = f"{tmp}/results"
     cfg.train.checkpoint_dir = ""
@@ -74,7 +79,7 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
+        (e.key[:160], e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         # device-side ranges of user annotations (Optimizer.step#...) overlap
         # the kernels they enclose; count kernels only
@@ -85,6 +90,7 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str) -> dict:
     busy_ms = sum(k[1] for k in kernels)
     kernels.sort(key=lambda k: -k[1])
     return {
+        "config": config or "default",
         "use_pallas": use_pallas,
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
         "phase_ms_all": phases,
@@ -99,6 +105,8 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str) -> dict:
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--config", default="", help="a YAML config; the default ExperimentConfig when empty")
+    p.add_argument("--out", default="", help="append the JSON lines to this file too")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -111,7 +119,12 @@ def main():
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for use_pallas in (True, False):
-            print(json.dumps({"card": card, **breakdown(use_pallas, args.epochs, tmp)}), flush=True)
+            line = json.dumps({"card": card, **breakdown(use_pallas, args.epochs, tmp, args.config)})
+            print(line, flush=True)
+            if args.out:
+                Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+                with open(args.out, "a") as f:
+                    f.write(line + "\n")
 
 
 if __name__ == "__main__":

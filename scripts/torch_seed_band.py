@@ -1,14 +1,16 @@
-"""Seed spread of the ``parity_small`` run in both packages.
+"""Seed spread of a pinned whole run in both packages.
 
 The PyTorch port cannot replay JAX's threefry bits, so its whole-run
 losses are held to the JAX package's spread over seeds instead of to one
-golden (tests/test_torch_experiment.py).  This script measures that
-spread on the CPU: the JAX run for seeds 0..N-1 and the port's run for the
+golden (tests/test_torch_experiment.py, tests/test_torch_goldens.py).
+This script measures that spread on the CPU: the JAX run of one config of
+tests/test_pinned_goldens.py for seeds 0..N-1 and the port's run for the
 same seeds, printing min/max of loss_train and loss_test per package.
 
-    JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N]
+    JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N] [--config parity_small|det_small|popart_small]
 """
 
+import argparse
 import json
 import sys
 import tempfile
@@ -21,26 +23,34 @@ jax.config.update("jax_default_matmul_precision", "highest")
 sys.path.insert(0, ".")
 from tests.test_pinned_goldens import golden_configs, run_one  # noqa: E402
 from tests.test_torch_experiment import parity_small  # noqa: E402
+from tests.test_torch_goldens import det_small, popart_small  # noqa: E402
 
 from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
 
+PORT_CONFIGS = {"parity_small": parity_small, "det_small": det_small, "popart_small": popart_small}
 
-def main(n: int) -> None:
+
+def main(n: int, config: str) -> None:
     out = {"jax": [], "torch": []}
     for seed in range(n):
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = golden_configs(tmp)["parity_small"]
+            cfg = golden_configs(tmp)[config]
             cfg.train.seed = seed
             out["jax"].append(run_one(cfg))
         with tempfile.TemporaryDirectory() as tmp:
-            r = Experiment(parity_small(tmp, seed), device="cpu").setup().run()
+            r = Experiment(PORT_CONFIGS[config](tmp, seed), device="cpu").setup().run()
             out["torch"].append({"loss_train": r["loss_train"], "loss_test": r["loss_test"]})
         print(seed, out["jax"][-1], out["torch"][-1], flush=True)
     for pkg, runs in out.items():
         for key in ("loss_train", "loss_test"):
             vals = [r[key] for r in runs]
-            print(json.dumps({"package": pkg, "metric": key, "min": min(vals), "max": max(vals)}))
+            print(json.dumps({"config": config, "package": pkg, "metric": key,
+                              "min": min(vals), "max": max(vals)}))
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 8)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n", nargs="?", type=int, default=8, help="number of seeds, from 0")
+    ap.add_argument("--config", choices=sorted(PORT_CONFIGS), default="parity_small")
+    args = ap.parse_args()
+    main(args.n, args.config)

@@ -1,0 +1,85 @@
+"""End to end on the CPU: the ``det_small`` and ``popart_small`` runs of
+tests/test_pinned_goldens.py in the PyTorch port.
+
+As with ``parity_small`` (tests/test_torch_experiment.py), the port's RNG
+is not JAX's, so each run is held to the JAX package's own spread over
+seeds: ``python scripts/torch_seed_band.py 8 --config <name>`` ran the JAX
+run for seeds 0-7 on the CPU and gave
+
+- det_small: loss_train in [0.2184, 0.3951] and loss_test in
+  [0.3366, 0.6741] (the port's own seeds 0-7: [0.2251, 0.4988] and
+  [0.4016, 0.6532]);
+- popart_small: loss_train in [0.2131, 0.2889] and loss_test in
+  [0.3015, 0.4028] (the port's: [0.2127, 0.2695] and [0.3092, 0.4119]).
+
+The port's seed-0 run must land inside the JAX range widened by half its
+width on each side.  Both routes run: the JAX package allows
+``model.use_pallas`` with det_features and under POPART.
+"""
+
+import pytest
+import torch
+
+from mfvae_tpu_torch.config import ExperimentConfig
+from mfvae_tpu_torch.training.experiment import Experiment
+from tests.test_torch_experiment import _band, _carry_tensors, one_torch_thread, parity_small  # noqa: F401
+
+# name -> ((loss_train min, max), (loss_test min, max)) of JAX seeds 0-7
+BANDS = {
+    "det_small": ((0.21836721897125244, 0.3951135277748108), (0.33655908703804016, 0.6740859150886536)),
+    "popart_small": ((0.21313495934009552, 0.28894540667533875), (0.3014877736568451, 0.4027957320213318)),
+}
+
+
+def det_small(tmp, seed=0) -> ExperimentConfig:
+    """tests/test_pinned_goldens.py golden_configs()['det_small']."""
+    cfg = parity_small(tmp, seed)
+    cfg.model.det_features = 16
+    return cfg
+
+
+def popart_small(tmp, seed=0) -> ExperimentConfig:
+    """tests/test_pinned_goldens.py golden_configs()['popart_small']."""
+    cfg = parity_small(tmp, seed)
+    cfg.loss.family = "torch"
+    cfg.train.mode = "POPART"
+    cfg.model.reward_head_init = "popart"
+    return cfg
+
+
+CONFIGS = {"det_small": det_small, "popart_small": popart_small}
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_lands_in_jax_seed_band(tmp_path, name, use_pallas):
+    cfg = CONFIGS[name](tmp_path)
+    cfg.model.use_pallas = use_pallas
+    result = Experiment(cfg, device="cpu").setup().run()
+    assert result["epoch"] == 7
+    (train_lo, train_hi), (test_lo, test_hi) = BANDS[name]
+    lo, hi = _band(train_lo, train_hi)
+    assert lo <= result["loss_train"] <= hi, result
+    lo, hi = _band(test_lo, test_hi)
+    assert lo <= result["loss_test"] <= hi, result
+
+
+def test_popart_resume_continues_exactly(tmp_path):
+    """POPART: two epochs, then resume for two more == four epochs
+    straight, PopArt stats included."""
+    straight = popart_small(tmp_path / "a")
+    straight.train.epoch_num = 4
+    full = Experiment(straight, device="cpu").setup()
+    want = full.run()
+    split = popart_small(tmp_path / "b")
+    split.train.epoch_num = 2
+    Experiment(split, device="cpu").setup().run()
+    split.train.epoch_num = 4
+    split.train.resume = True
+    resumed = Experiment(split, device="cpu").setup()
+    got = resumed.run()
+    assert got["loss_train"] == want["loss_train"] and got["loss_test"] == want["loss_test"]
+    for x, y in zip(full.carry.train_state.popart, resumed.carry.train_state.popart):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    for x, y in zip(_carry_tensors(full), _carry_tensors(resumed)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)

@@ -27,5 +27,6 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for must in ("mfvae_tpu_torch/ops/fused_elbo.py", "mfvae_tpu_torch/training/trainer.py", "chip_smoke.py"):
+    for must in ("mfvae_tpu_torch/ops/fused_elbo.py", "mfvae_tpu_torch/training/trainer.py",
+                 "mfvae_tpu_torch/training/popart.py", "chip_smoke.py"):
         assert must in names

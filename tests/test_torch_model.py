@@ -26,6 +26,7 @@ from mfvae_tpu_torch.models.mavae import (
     agent_order_concat,
     state_to_grouped,
 )
+from tests.test_torch_experiment import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 SMALL = dict(idx_features=8, obs_features=8, action_features=8,
@@ -103,16 +104,11 @@ def test_agent_order_concat_round_trip():
         torch.testing.assert_close(a, b)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("det_features", 4, "M10"), ("residual_state", True, "M10"), ("state_skip", True, "M10"),
-    ("decoder_layernorm", True, "M10"), ("reward_head_mode", "twohot", "M10"),
-    ("reward_head_input", "pred_state", "M10"), ("action_delta_head", True, "M10"),
-    ("latent_structure", "shared_private", "M10"), ("rng_mode", "reference", "M20"),
-    ("remat", True, "M20"),
-])
-def test_unported_options_refused(field, value, item):
+@pytest.mark.parametrize("field,value", [("rng_mode", "reference"), ("remat", True)])
+def test_unported_options_refused(field, value):
     cfg = ModelConfig(**SMALL)
     setattr(cfg, field, value)
     spec = AgentSpec.from_dicts(("a",), {"a": 3}, {"a": 5})
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="M20"):
         MAVAE.from_config(cfg, spec, device="cpu")
+

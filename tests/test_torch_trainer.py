@@ -29,6 +29,7 @@ from mfvae_tpu_torch.data.transitions import VaeBatch
 from mfvae_tpu_torch.models.convert import params_from_jax
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch
 from mfvae_tpu_torch.training.trainer import create_train_state, make_lr, make_train_step
+from tests.test_torch_experiment import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 B, F = 8, 8
@@ -111,11 +112,12 @@ def test_use_pallas_guards_raise_as_in_jax(loss_kw, s_col):
     col = np.ones(26, np.float32) if s_col else None
     with pytest.raises(AssertionError):
         j_make_train_step(JLossConfig(**loss_kw), use_pallas=True, s_col_weight=col)
+    tcol = None if col is None else torch.from_numpy(col)
     with pytest.raises(ValueError):
-        make_train_step(LossConfig(**loss_kw), use_pallas=True, s_col_weight=col)
-    # the plain route accepts the same loss options where the port has them
-    if not s_col and "contact_weight" not in loss_kw:
-        make_train_step(LossConfig(**loss_kw), use_pallas=False)
+        make_train_step(LossConfig(**loss_kw), use_pallas=True, s_col_weight=tcol)
+    # the plain route accepts the same loss options, as in JAX
+    j_make_train_step(JLossConfig(**loss_kw), use_pallas=False, s_col_weight=col)
+    make_train_step(LossConfig(**loss_kw), use_pallas=False, s_col_weight=tcol)
 
 
 @pytest.mark.parametrize("schedule", ["constant", "cosine", "cosine_periodic", "warmup_cosine"])
