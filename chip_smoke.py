@@ -46,9 +46,29 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    losses: the two-hot head with reward_head_input=pred_state and
    action_delta_head; examples/continuous_tag.yaml; loss.contact_weight=1
    with loss.prey_dist_weight=1.
-11. The kernel list as one JSON line, the card, and the result line.
+11. Batched pursuit: examples/pursuit_collection.yaml with train.n_envs=4
+   (4 envs in lockstep, buffer shards [4, 2,500, ...], no host sync per
+   env step) with the kernels for 2 epochs (K1 = K2 = 20, K3 = 40), on
+   plain ops for 1 epoch (no launches), one train step by both routes
+   (rtol 1e-4), and the share of contact transitions in the train buffer
+   beside a random-collection run of the same shape.
+12. examples/episode_mix_collection.yaml with train.n_envs=4 and the
+   kernels for 1 epoch (K1 = K2 = 10, K3 = 20); the per-env policy carry
+   must be there afterwards.
+13. examples/world_model_control.yaml (sticky 0.95, unroll_steps 8,
+   grad_clip 10, action_delta_head, decoders over a 15,900-wide input) on
+   plain ops for 2 epochs; with model.use_pallas=true it must raise
+   NotImplementedError, as in the JAX package.
+14. examples/world_model_unroll.yaml with train.n_envs=4 on plain ops for
+   1 epoch: per-shard capacity 2,560, divisible by sample_num 128.
+15. Serving the model of phase 13: WorldModel.predict on a buffer batch
+   bit-equal to model.mean_call; a T = 25, B = 256 rollout, finite, whose
+   first step is bit-equal to predict (and its time by CUDA events);
+   rollout_accuracy at horizons (1, 5, 25), n_starts 256, burn_in 32,
+   under random and pursuit collection, every metric finite.
+16. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-10 print their epoch walls, launches and losses.
+Phases 4-14 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -84,10 +104,13 @@ def main() -> None:
     try:
         from mfvae_tpu_torch.config import ExperimentConfig, load_config
         from mfvae_tpu_torch.data.transitions import vae_batch_from_grouped
+        from mfvae_tpu_torch.inference import WorldModel
+        from mfvae_tpu_torch.models.mavae import GroupedBatch
         from mfvae_tpu_torch.ops import fused_elbo as ops
+        from mfvae_tpu_torch.rollout_eval import rollout_accuracy
         from mfvae_tpu_torch.training.experiment import Experiment
         from mfvae_tpu_torch.training import popart
-        from mfvae_tpu_torch.training.trainer import make_train_step
+        from mfvae_tpu_torch.training.trainer import make_action_sampler, make_train_step
         from mfvae_tpu_torch.utils import kernel_build
     except ImportError as e:
         fail(f"the mfvae_tpu_torch package is not importable beside this script ({e})")
@@ -420,7 +443,130 @@ def main() -> None:
             exp, walls[label], _ = drive(cfg, False, 1, f"{tmp}/{label}", "10", label)
             del exp
 
-    # ------------------------------------------------------ 11. the kernel list
+        # ------------------------------------------------- 11. batched pursuit
+        def contact_share(exp):
+            """Share of the train buffer's transitions whose largest agent
+            reward exceeds loss.contact_threshold."""
+            st = exp.carry.buffer_state
+            rew = st.data.rewards[:, : st.size]
+            return float((rew.amax(-1) > exp.cfg.loss.contact_threshold).float().mean())
+
+        pursuit = str(examples / "pursuit_collection.yaml")
+        label = "pursuit_collection n_envs=4"
+        exp, walls[f"{label}, kernels"], path_launches[label] = drive(
+            load_config(pursuit, ["train.n_envs=4"]), True, 2, f"{tmp}/pursuit_pallas", "11", label)
+        shards = tuple(exp.carry.buffer_state.data.rewards.shape)
+        print(f"[11] {label}: train buffer shards {shards}, filled {exp.carry.buffer_state.size} per shard")
+        check(shards == (4, 2500, 40) and exp.cfg.train.collect_policy == "pursuit",
+              f"{label}: buffer shards {shards}, expected (4, 2500, 40)")
+        del exp
+        exp, walls[f"{label}, plain"], _ = drive(
+            load_config(pursuit, ["train.n_envs=4"]), False, 1, f"{tmp}/pursuit_plain", "11", label)
+        both_routes(exp, "11", label)
+        shares = {"pursuit": contact_share(exp)}
+        del exp
+        exp, walls["random collection n_envs=4, plain"], _ = drive(
+            load_config(pursuit, ["train.n_envs=4", "train.collect_policy=random"]), False, 1,
+            f"{tmp}/random_plain", "11", "random collection n_envs=4")
+        shares["random"] = contact_share(exp)
+        print(f"[11] contact share of the train buffer after 1 epoch (max reward > "
+              f"{exp.cfg.loss.contact_threshold}): pursuit {shares['pursuit']:.6f} random {shares['random']:.6f}")
+        del exp
+
+        # ---------------------------------------------------- 12. episode_mix
+        label = "episode_mix_collection n_envs=4"
+        exp, walls[f"{label}, kernels"], path_launches[label] = drive(
+            load_config(str(examples / "episode_mix_collection.yaml"), ["train.n_envs=4"]), True, 1,
+            f"{tmp}/mix_pallas", "12", label)
+        carry = exp.carry.env.policy
+        print(f"[12] {label}: policy carry {[(tuple(x.shape), str(x.dtype)) for x in carry]}, "
+              f"episodes under pursuit {carry[1].tolist()}")
+        check(len(carry) == 2 and all(tuple(x.shape) == (4,) for x in carry), f"{label}: no per-env policy carry")
+        del exp
+
+        # ---------------------------------------- 13. world_model_control, unroll
+        control = str(examples / "world_model_control.yaml")
+        label = "world_model_control"
+        exp, walls[f"{label}, plain"], _ = drive(load_config(control), False, 2, f"{tmp}/control", "13", label)
+        c, m = exp.cfg, exp.cfg.model
+        check(c.train.collect_policy == "sticky" and c.train.collect_mix_frac == 0.95 and c.train.unroll_steps == 8
+              and c.train.grad_clip == 10.0 and m.action_delta_head and m.det_features == 128,
+              "world_model_control.yaml is not the configuration this phase names")
+        model = exp.carry.train_state.model
+        dec_in = model.state_decoder.fc0.kernel.shape[0]
+        print(f"[13] {label}: decoder input width {dec_in}, {exp.carry.train_state.step} unroll steps taken, "
+              f"policy carry {[tuple(x.shape) for x in exp.carry.env.policy]}")
+        check(dec_in == 15900, f"{label} decoder input {dec_in}, expected 15,900")
+        bad = load_config(control)
+        bad.model.use_pallas = True
+        bad.train.log_dir, bad.train.checkpoint_dir = f"{tmp}/bad", ""
+        try:
+            Experiment(bad).setup()
+        except NotImplementedError as e:
+            print(f"[13] {label} with model.use_pallas=true refused: {e}")
+        else:
+            fail(f"{label} with model.use_pallas=true was not refused")
+
+        # ------------------------------------------- 14. world_model_unroll, batched
+        label = "world_model_unroll n_envs=4"
+        exp4, walls[f"{label}, plain"], _ = drive(
+            load_config(str(examples / "world_model_unroll.yaml"), ["train.n_envs=4"]), False, 1,
+            f"{tmp}/unroll4", "14", label)
+        cap = exp4.buffer.max_length
+        print(f"[14] {label}: shards {tuple(exp4.carry.buffer_state.data.rewards.shape)}, per-shard capacity {cap}")
+        check(cap == 2560 and cap % exp4.cfg.train.sample_num == 0, f"{label}: per-shard capacity {cap}")
+        del exp4
+
+        # ------------------------------------------------------- 15. serving
+        wm = WorldModel(model)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        batch = vae_batch_from_grouped(exp.spec, exp.buffer.sample(exp.carry.buffer_state, gen).experience)
+        pred = wm.predict(batch.inputs, None)
+        with torch.no_grad():
+            want = model.mean_call(batch.inputs)
+        check(all(torch.equal(p, q) for p, q in zip(pred, want)), "WorldModel.predict differs from mean_call")
+        big = exp.buffer.sample(exp.carry.buffer_state, gen, batch_size=256).experience
+        sample_actions, group_actions = make_action_sampler(exp.env, exp.spec)
+        plan = group_actions(sample_actions(gen, (25, 256)))
+        states, rewards = wm.rollout(GroupedBatch(obs=big.obs, actions=big.actions), plan)
+        first = wm.predict(GroupedBatch(obs=big.obs, actions=tuple(a[0] for a in plan)), None)
+        check(tuple(states.shape) == (25, 256, 5660) and tuple(rewards.shape) == (25, 256, 40),
+              f"rollout shapes {tuple(states.shape)}, {tuple(rewards.shape)}")
+        check(bool(torch.isfinite(states).all() and torch.isfinite(rewards).all()), "non-finite rollout")
+        check(torch.equal(states[0], first[0]) and torch.equal(rewards[0], first[1]),
+              "the rollout's first step differs from predict")
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            wm._rollout(big.obs, plan)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        rollout_ms = statistics.median(times)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wm._rollout(big.obs, plan)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False))
+        print(f"[15] predict and the rollout's first step bit-equal to mean_call; rollout T=25 B=256: "
+              f"median {rollout_ms:.3f} ms of 5 (CUDA events; all {[round(t, 3) for t in times]}); "
+              f"device busy {busy:.3f} ms in {n_kernels} kernels (torch.profiler, one rollout)")
+        accuracy = {}
+        for pol in ("random", "pursuit"):
+            t0 = time.perf_counter()
+            acc = rollout_accuracy(wm, exp.env, exp.spec, torch.Generator(device=dev).manual_seed(4),
+                                   horizons=(1, 5, 25), n_starts=256, burn_in=32, policy=pol)
+            accuracy[pol] = acc
+            print(f"[15] rollout_accuracy {pol} ({time.perf_counter() - t0:.2f} s): {json.dumps(acc)}")
+            check(all(math.isfinite(v) for v in acc.values()), f"rollout_accuracy {pol}: non-finite metric")
+        del exp, model, wm
+
+    # ------------------------------------------------------ 16. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -438,10 +584,10 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[11] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[16] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[11] per-epoch wall ms, {label}: {w}")
+        print(f"[16] per-epoch wall ms, {label}: {w}")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,15 @@
 ``ItemBuffer``).
 
 The data is a tree (nested tuples / NamedTuples) of tensors with a leading
-[capacity] axis on the run's device.  Unlike the JAX buffer, which returns
-a new state from every pure call, ``add``/``add_batch`` write into the
-state's tensors in place (one copy instead of a fresh capacity-sized
+[capacity] axis on the run's device, or [shards, capacity] for the
+batched epoch, where each of ``shards`` envs feeds its own shard (the JAX
+package vmaps one buffer over that axis).  Unlike the JAX buffer, which
+returns a new state from every pure call, ``add``/``add_batch`` write into
+the state's tensors in place (one copy instead of a fresh capacity-sized
 buffer per step) and return the state with its host-side ``cursor`` and
 ``size`` advanced.  The host counts every add, so it knows both numbers
-without reading the device.
+without reading the device; the shards add in lockstep, so one cursor and
+one size serve them all.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ def tree_leaves(tree: Tree) -> list:
 
 
 class BufferState(NamedTuple):
-    """data: tree with leading [capacity, ...] axes; cursor: next write
-    position; size: valid entries."""
+    """data: tree with leading [capacity, ...] (or [shards, capacity, ...])
+    axes; cursor: next write position; size: valid entries per shard."""
 
     data: Tree
     cursor: int
@@ -49,24 +52,51 @@ class SampleBatch(NamedTuple):
     experience: Tree
 
 
+def window_starts(a: torch.Tensor, b: torch.Tensor, size: int, cursor: int, capacity: int,
+                  window: int, block: int) -> torch.Tensor:
+    """Window start slots from the two uniform draws of ``sample_window``.
+
+    With ``block``: start = a·block + b (a the block, b the offset in
+    [0, block − window]), clamped into the valid prefix, so a caller off
+    the phase-aligned invariant reads overlapping valid windows, never the
+    zero tail.  Without: ``a`` counts from the oldest item once the ring
+    is full (from the cursor), so no window crosses the write seam."""
+    if block:
+        return torch.clamp(a * block + b, max=max(size - window, 0))
+    base = cursor if size >= capacity else 0
+    return (base + a) % capacity
+
+
 @dataclass(frozen=True)
 class ItemBuffer:
-    """Uniform-sampling FIFO ring over single items or item batches."""
+    """Uniform-sampling FIFO ring over single items or item batches, with
+    an optional leading axis of ``shards`` independent rings (0: none)."""
 
     max_length: int
     min_length: int = 64
     sample_batch_size: int = 64
+    shards: int = 0
+
+    def _lead(self) -> tuple:
+        return (self.shards,) if self.shards else ()
 
     def init(self, example_item: Tree) -> BufferState:
-        data = tree_map(
-            lambda x: torch.zeros((self.max_length, *x.shape), dtype=x.dtype, device=x.device),
-            example_item,
-        )
-        return BufferState(data=data, cursor=0, size=0)
+        """``example_item`` carries the [shards] axis when ``shards`` > 0."""
+        k = len(self._lead())
+
+        def zeros(x):
+            return torch.zeros((*x.shape[:k], self.max_length, *x.shape[k:]), dtype=x.dtype, device=x.device)
+
+        return BufferState(data=tree_map(zeros, example_item), cursor=0, size=0)
 
     def add(self, state: BufferState, item: Tree) -> BufferState:
+        """Write one item (one per shard: leaves [shards, ...]) at the cursor."""
+
         def write(buf, x):
-            buf[state.cursor] = x
+            if self.shards:
+                buf[:, state.cursor] = x
+            else:
+                buf[state.cursor] = x
 
         tree_map(write, state.data, item)
         return BufferState(
@@ -77,6 +107,8 @@ class ItemBuffer:
 
     def add_batch(self, state: BufferState, items: Tree) -> BufferState:
         """Write a [B, ...] batch at the cursor, wrapping around."""
+        if self.shards:
+            raise NotImplementedError("add_batch writes an unsharded ring")
         b = tree_leaves(items)[0].shape[0]
         device = tree_leaves(state.data)[0].device
         idx = (state.cursor + torch.arange(b, device=device)) % self.max_length
@@ -101,9 +133,59 @@ class ItemBuffer:
         batch_size: Optional[int] = None,
     ) -> SampleBatch:
         """Uniform with replacement over the valid prefix.  ``batch_size``
-        defaults to ``sample_batch_size``; the eval phase draws all of its
-        steps' batches in one call."""
+        (items per shard) defaults to ``sample_batch_size``; the eval phase
+        draws all of its steps' batches in one call.  Sharded, each
+        consecutive run of shards·sample_batch_size items is one batch of
+        sample_batch_size items from every shard, as the JAX package's
+        stratified global batch."""
         n = self.sample_batch_size if batch_size is None else batch_size
         device = tree_leaves(state.data)[0].device
-        idx = torch.randint(0, max(state.size, 1), (n,), generator=generator, device=device)
+        idx = torch.randint(0, max(state.size, 1), self._lead() + (n,), generator=generator, device=device)
+        if self.shards:
+            bs = self.sample_batch_size
+            # [shards, n] -> [n / bs, shards, bs]: whole batches, each stratified
+            idx = idx.reshape(self.shards, n // bs, bs).transpose(0, 1)
+            rows = torch.arange(self.shards, device=device)[None, :, None]
+            return SampleBatch(experience=tree_map(lambda buf: buf[rows, idx].flatten(0, 2), state.data))
         return SampleBatch(experience=tree_map(lambda buf: buf.index_select(0, idx), state.data))
+
+    def sample_window(
+        self,
+        state: BufferState,
+        generator: Optional[torch.Generator],
+        window: int,
+        block: int = 0,
+    ) -> SampleBatch:
+        """Sample runs of ``window`` consecutive items, leaves
+        [shards·sample_batch_size, window, ...].
+
+        Sequential adds write time-adjacent items at adjacent slots; the
+        ring's write seam once full, and with ``block`` > 0 (which must
+        divide max_length) every block boundary, break that adjacency and
+        are kept out of the start distribution (``window_starts``).
+        Episode ends inside a window are the caller's to mask."""
+        if window > self.max_length:
+            raise ValueError(f"window {window} exceeds the capacity {self.max_length}")
+        if block and not (window <= block <= self.max_length and self.max_length % block == 0):
+            raise ValueError(f"block {block} must lie in [window, capacity] and divide {self.max_length}")
+        device = tree_leaves(state.data)[0].device
+        shape = self._lead() + (self.sample_batch_size,)
+        if block:
+            a = torch.randint(0, max(state.size // block, 1), shape, generator=generator, device=device)
+            b = torch.randint(0, block - window + 1, shape, generator=generator, device=device)
+        else:
+            full = state.size >= self.max_length
+            n_starts = self.max_length - window + 1 if full else max(state.size - window + 1, 1)
+            a = torch.randint(0, n_starts, shape, generator=generator, device=device)
+            b = None
+        starts = window_starts(a, b, state.size, state.cursor, self.max_length, window, block)
+        return SampleBatch(experience=self.gather_windows(state, starts, window))
+
+    def gather_windows(self, state: BufferState, starts: torch.Tensor, window: int) -> Tree:
+        """The windows at ``starts`` ([*lead, n]): leaves [shards·n, window, ...],
+        shard-major."""
+        idx = (starts[..., None] + torch.arange(window, device=starts.device)) % self.max_length
+        if not self.shards:
+            return tree_map(lambda buf: buf[idx], state.data)
+        rows = torch.arange(self.shards, device=idx.device)[:, None, None]
+        return tree_map(lambda buf: buf[rows, idx].flatten(0, 1), state.data)

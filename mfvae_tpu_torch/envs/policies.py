@@ -1,0 +1,201 @@
+"""Scripted collection policies (mirror of ``mfvae_tpu/envs/policies.py``).
+
+The reference fills its replay buffer with uniform-random actions only.  A
+scripted pursuit/evade policy makes adversary-prey contacts common, and
+``collect_epsilon`` mixes uniform-random actions back in for coverage.
+
+Every policy takes the env state with any leading axes ([E, ...] on the
+batched path, where the JAX package vmaps) and draws from a
+``torch.Generator``.  Each policy draws the sampler's uniform actions
+first, so at ``collect_epsilon`` 1 (pursuit), ``mix_frac`` 0
+(episode_mix) or hold 0 (sticky) the action is the sampler's draw from the
+generator state the policy was handed.  No step reads the device from the
+host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mfvae_tpu_torch.envs.mpe import SimpleTagEnv
+
+
+def _toward_discrete(delta: torch.Tensor) -> torch.Tensor:
+    """[..., N, 2] displacement -> discrete action along its dominant axis
+    (1 -x, 2 +x, 3 -y, 4 +y); on target (|delta| < 1e-6) the no-op.  On a
+    tie |dx| = |dy| the x axis wins, as ``jnp.argmax`` takes the first
+    maximum."""
+    ax_y = torch.abs(delta[..., 1]) > torch.abs(delta[..., 0])
+    comp = torch.where(ax_y, delta[..., 1], delta[..., 0])
+    pos = comp > 0
+    act = torch.where(
+        ax_y, torch.where(pos, 4, 3), torch.where(pos, 2, 1)
+    )
+    on_target = torch.linalg.vector_norm(delta, dim=-1) < 1e-6
+    return torch.where(on_target, 0, act).to(torch.int32)
+
+
+def _toward_continuous(delta: torch.Tensor) -> torch.Tensor:
+    """[..., N, 2] displacement -> its direction, a force in Box(-1, 1)."""
+    norm = torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
+    return delta / torch.clamp(norm, min=1e-6)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [..., M, 2] gathered at idx [..., K] along the entity axis."""
+    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, 2))
+
+
+def _tag_deltas(env: SimpleTagEnv, state) -> torch.Tensor:
+    """Per-agent pursuit/evade displacement [..., A, 2]: adversaries chase
+    their nearest good agent; good agents flee their nearest adversary and
+    turn back inside the arena edge (from |x| = 0.8), which is what lets
+    the slower hunters corner them."""
+    n_adv = env.num_adversaries
+    adv = state.agent_pos[..., :n_adv, :]
+    good = state.agent_pos[..., n_adv:, :]
+    d = torch.linalg.vector_norm(adv[..., :, None, :] - good[..., None, :, :], dim=-1)
+    chase = _take(good, torch.argmin(d, dim=-1)) - adv
+    flee = good - _take(adv, torch.argmin(d, dim=-2))
+    flee = flee / torch.clamp(torch.linalg.vector_norm(flee, dim=-1, keepdim=True), min=1e-6)
+    wall_pull = -torch.sign(good) * torch.clamp(torch.abs(good) - 0.8, min=0.0) * 2.0
+    return torch.cat([chase, flee + wall_pull], dim=-2)
+
+
+def _adversary_deltas(env, state):
+    raise NotImplementedError(
+        "pursuit on simple_adversary needs SimpleAdversaryEnv, which is not "
+        "ported to the PyTorch package yet (ROADMAP M14)"
+    )
+
+
+def host_pursuit_actions(*args, **kwargs):
+    raise NotImplementedError(
+        "host_pursuit_actions serves the host collectors, which are not "
+        "ported to the PyTorch package yet (ROADMAP M18)"
+    )
+
+
+class ImaginationCollectPolicy:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "collect_policy='imagination:...' is not ported to the PyTorch "
+            "package yet (ROADMAP M15)"
+        )
+
+
+def _leading(state) -> tuple:
+    return tuple(state.step.shape)
+
+
+class EpisodeMixPolicy:
+    """Whole episodes under the scripted policy (probability ``mix_frac``)
+    or under uniform random actions.  carry = (fresh, use_scripted), each
+    bool [*leading]; the trainer resets it to ``init_carry`` at episode
+    end, which re-arms ``fresh`` so the next step redraws the episode's
+    policy."""
+
+    def __init__(self, scripted, sample_fn, mix_frac: float, device):
+        self.scripted = scripted
+        self.sample_fn = sample_fn
+        self.mix_frac = float(mix_frac)
+        self.device = device
+
+    def init_carry(self, leading=()):
+        return (
+            torch.ones(leading, dtype=torch.bool, device=self.device),
+            torch.zeros(leading, dtype=torch.bool, device=self.device),
+        )
+
+    def step(self, carry, stacked_obs, env_state, generator):
+        fresh, use_scripted = carry
+        lead = _leading(env_state)
+        rand = self.sample_fn(generator, lead)
+        draw = torch.rand(lead, generator=generator, device=self.device) < self.mix_frac
+        use_scripted = torch.where(fresh, draw, use_scripted)
+        scripted = self.scripted(env_state, generator)
+        pick = use_scripted.reshape(lead + (1,) * (rand.dim() - len(lead)))
+        act = torch.where(pick, scripted, rand)
+        return (torch.zeros_like(fresh), use_scripted), act
+
+
+class StickyRandomPolicy:
+    """Each agent repeats its previous action with probability
+    ``sticky_prob`` and resamples uniformly otherwise, so held directions
+    accumulate displacement that multi-step objectives can see.  carry =
+    (prev_actions, fresh); the trainer resets it at episode end."""
+
+    def __init__(self, env, spec, sample_fn, sticky_prob: float):
+        self.sample_fn = sample_fn
+        self.sticky_prob = float(sticky_prob)
+        self.n_agents = spec.n_agents
+        self.discrete = getattr(env, "discrete_actions", True)
+        self.act_shape = () if self.discrete else (spec.act_dims[0],)
+        self.device = env.device
+
+    def init_carry(self, leading=()):
+        dtype = torch.int32 if self.discrete else torch.float32
+        prev = torch.zeros(tuple(leading) + (self.n_agents,) + self.act_shape, dtype=dtype, device=self.device)
+        return (prev, torch.ones(leading, dtype=torch.bool, device=self.device))
+
+    def step(self, carry, stacked_obs, env_state, generator):
+        prev, fresh = carry
+        lead = _leading(env_state)
+        rand = self.sample_fn(generator, lead)
+        u = torch.rand(lead + (self.n_agents,), generator=generator, device=self.device)
+        keep = (u < self.sticky_prob) & ~fresh[..., None]
+        if not self.discrete:
+            keep = keep[..., None]
+        act = torch.where(keep, prev, rand)
+        return (act, torch.zeros_like(fresh)), act
+
+
+def reset_carry(policy, carry, done_all: torch.Tensor):
+    """The policy carry with every env whose episode ended (``done_all``
+    [*leading] bool) back at ``init_carry``."""
+    init = policy.init_carry(tuple(done_all.shape))
+    return tuple(
+        torch.where(done_all.reshape(done_all.shape + (1,) * (p.dim() - done_all.dim())), i, p)
+        for i, p in zip(init, carry)
+    )
+
+
+def make_collect_policy(env, spec, name: str, epsilon: float, sample_fn, mix_frac: float = 0.5):
+    """A collection policy, or None for ``name='random'`` (the reference).
+
+    - ``'pursuit'``: ``policy(state, generator)`` -> actions, scripted
+      chase/evade with an epsilon-uniform mixture per agent; dominant-axis
+      moves for discrete actions, normalized forces for continuous ones.
+    - ``'episode_mix'``: ``EpisodeMixPolicy`` over pursuit and the sampler.
+    - ``'sticky'``: ``StickyRandomPolicy`` with hold probability
+      ``mix_frac``.
+
+    ``sample_fn(generator, leading)`` is the trainer's uniform sampler
+    (``make_action_sampler``), so the mixture keeps the env's own action
+    bounds."""
+    if name == "random":
+        return None
+    if name.startswith("imagination:"):
+        return ImaginationCollectPolicy(env, spec, name[len("imagination:"):], epsilon, sample_fn, hold=mix_frac)
+    if name == "episode_mix":
+        scripted = make_collect_policy(env, spec, "pursuit", epsilon, sample_fn)
+        return EpisodeMixPolicy(scripted, sample_fn, mix_frac, env.device)
+    if name == "sticky":
+        return StickyRandomPolicy(env, spec, sample_fn, mix_frac)
+    if name != "pursuit":
+        raise ValueError(f"unknown collect_policy {name!r}")
+    delta_fn = _tag_deltas if isinstance(env, SimpleTagEnv) else _adversary_deltas
+    discrete = getattr(env, "discrete_actions", True)
+    n_agents = spec.n_agents
+    epsilon = float(epsilon)
+
+    def policy(state, generator):
+        lead = _leading(state)
+        rand = sample_fn(generator, lead)
+        take_rand = torch.rand(lead + (n_agents,), generator=generator, device=env.device) < epsilon
+        delta = delta_fn(env, state)
+        if discrete:
+            return torch.where(take_rand, rand, _toward_discrete(delta))
+        return torch.where(take_rand[..., None], rand, _toward_continuous(delta))
+
+    return policy

@@ -1,0 +1,136 @@
+"""Serving a trained world model (mirror of ``mfvae_tpu/inference.py``).
+
+``WorldModel(model)`` answers the queries the architecture supports, all
+under ``torch.no_grad()`` on the model's device:
+
+- ``predict(obs, actions)`` -> (next_state, rewards): the posterior-mean
+  one-step prediction (``MAVAE.mean_call``, the path unroll training's
+  ``mean_feedback`` runs);
+- ``sample(obs, actions, generator, n)`` -> n posterior draws;
+- ``encode(obs)`` -> per-agent (mu, logvar);
+- ``rollout(obs, action_plan)`` -> a T-step closed loop: the predicted
+  global state is every agent's next observation, so it is re-split per
+  agent (``state_to_grouped``) and fed back.
+
+Inputs are ``GroupedBatch``es, or the reference's per-agent dicts.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from mfvae_tpu_torch.config import ModelConfig
+from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch, state_to_grouped, zero_actions_grouped
+
+
+class WorldModel:
+    def __init__(self, model: MAVAE):
+        self.model = model
+        self.spec = model.spec
+        self.device = next(model.parameters()).device
+
+    # ------------------------------------------------------------------ api
+    @torch.no_grad()
+    def predict(self, obs, actions) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Posterior-mean next global state [B, Σobs] and per-agent
+        rewards [B, A]."""
+        return self.model.mean_call(self._as_batch(obs, actions))
+
+    @torch.no_grad()
+    def sample(self, obs, actions, generator: Optional[torch.Generator] = None, n: int = 1, eps=None):
+        """n posterior draws: ([n, B, Σobs], [n, B, A]).  ``eps``
+        [n, B, A, F] (grouped agent order) replaces the generator's draws."""
+        batch = self._as_batch(obs, actions)
+        states, rewards = [], []
+        for i in range(n):
+            s, r, _, _ = self.model(batch, None, generator, None if eps is None else eps[i])
+            states.append(s)
+            rewards.append(r)
+        return torch.stack(states), torch.stack(rewards)
+
+    @torch.no_grad()
+    def encode(self, obs, actions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-agent latents (mu, logvar), each [B, A, F] in grouped order."""
+        mu, logvar, *_ = self.model.encode(self._as_batch(obs, actions))
+        return mu.to(torch.float32), logvar.to(torch.float32)
+
+    def rollout(self, obs, action_plan) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Imagine a T-step trajectory from ``obs`` under ``action_plan``:
+        a dict {agent: [T] or [T, B] (continuous: [T, act] or [T, B, act])}
+        or a per-group tuple of [T, B, A_g(, act)].  Returns the
+        posterior-mean closed loop (states [T, B, Σobs], rewards
+        [T, B, A])."""
+        batch = self._as_batch(obs, None)
+        if isinstance(action_plan, dict):
+            discrete = self.model.discrete_act
+            plan_g = []
+            for _, idxs in self.spec.groups:
+                cols = []
+                for i in idxs:
+                    c = torch.as_tensor(action_plan[self.spec.agents[i]], device=self.device)
+                    # an unbatched per-agent plan gets a B = 1 axis
+                    if c.dim() == (1 if discrete else 2):
+                        c = c.unsqueeze(1)
+                    cols.append(c)
+                plan_g.append(torch.stack(cols, dim=2))  # [T, B, A_g(, act)]
+            action_plan = tuple(plan_g)
+        return self._rollout(batch.obs, action_plan)
+
+    @torch.no_grad()
+    def _rollout(self, obs_g, action_plan):
+        """obs_g: per-group [B, A_g, od]; action_plan: per-group
+        [T, B, A_g(, act)]."""
+        states, rewards = [], []
+        for t in range(action_plan[0].shape[0]):
+            ns, rw = self.model.mean_call(GroupedBatch(obs=obs_g, actions=tuple(a[t] for a in action_plan)))
+            states.append(ns)
+            rewards.append(rw)
+            obs_g = state_to_grouped(self.spec, ns)
+        return torch.stack(states), torch.stack(rewards)
+
+    def _as_batch(self, obs, actions) -> GroupedBatch:
+        if isinstance(obs, GroupedBatch):
+            return obs
+        if not isinstance(obs, dict):
+            raise TypeError(type(obs))
+        discrete = self.model.discrete_act
+        obs_g, act_g = [], []
+        for _, idxs in self.spec.groups:
+            names = [self.spec.agents[i] for i in idxs]
+            obs_g.append(torch.stack(
+                [torch.atleast_2d(torch.as_tensor(obs[a], device=self.device)) for a in names], dim=1
+            ))
+            if actions is not None:
+                widen = torch.atleast_1d if discrete else torch.atleast_2d
+                act_g.append(torch.stack(
+                    [widen(torch.as_tensor(actions[a], device=self.device)) for a in names], dim=1
+                ))
+        if actions is None:
+            act_g = list(zero_actions_grouped(self.spec, obs_g[0].shape[0], discrete, self.device))
+        return GroupedBatch(obs=tuple(obs_g), actions=tuple(act_g))
+
+    # ------------------------------------------------------------- loading
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_dir: str,
+        model_cfg: ModelConfig,
+        spec: AgentSpec,
+        step: Optional[int] = None,
+        device="cuda",
+    ) -> "WorldModel":
+        """The model of a ``training.experiment`` checkpoint
+        (``payload["model"]``), on ``device`` (the card unless the caller
+        asks for the CPU)."""
+        from mfvae_tpu_torch.training.checkpoint import CheckpointManager
+        from mfvae_tpu_torch.training.experiment import resolve_device
+
+        dev = resolve_device(device)
+        payload = CheckpointManager(checkpoint_dir).restore(step)
+        if payload is None:
+            raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+        model = MAVAE.from_config(model_cfg, spec, device=dev)
+        model.load_state_dict(payload["model"])
+        return cls(model)

@@ -30,7 +30,9 @@ from mfvae_tpu_torch.training.trainer import (
     EnvCarry,
     EpochCarry,
     create_train_state,
+    init_policy_carry,
     make_epoch_fn,
+    shard_buffer,
     stacked_to_grouped,
 )
 
@@ -55,9 +57,6 @@ def build_spec(env) -> AgentSpec:
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     t = cfg.train
     off_path = {
-        f"train.collect_policy={t.collect_policy!r}": (t.collect_policy != "random", "M11"),
-        "train.n_envs>1": (t.n_envs > 1, "M11"),
-        "train.unroll_steps>1": (t.unroll_steps > 1, "M12"),
         "env.backend='host'": (cfg.env.backend == "host", "M18"),
         "mesh.enable": (cfg.mesh.enable, "M17"),
         "train.profile_epochs": (t.profile_epochs > 0, "M20"),
@@ -70,7 +69,8 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
                 f"{name} is not ported to the PyTorch package yet (ROADMAP {item})"
             )
     # model.rng_mode=reference and model.remat are refused where they are
-    # used (MAVAE); fused_epoch, epochs_per_dispatch and eval_vmap shape
+    # used (MAVAE), the vdn: and imagination: collect policies where the
+    # policy is resolved (trainer, envs/policies.py); fused_epoch, epochs_per_dispatch and eval_vmap shape
     # only the JAX package's XLA program and change nothing
 
 
@@ -95,11 +95,10 @@ class Experiment:
             min_length=cfg.buffer.min_size,
             sample_batch_size=cfg.buffer.batch_size,
         )
-        self.test_buffer = ItemBuffer(
-            max_length=cfg.buffer.max_size,
-            min_length=cfg.buffer.min_size,
-            sample_batch_size=cfg.buffer.batch_size,
-        )
+        if cfg.train.n_envs > 1:
+            # the batched epoch: one buffer shard per env
+            self.buffer = shard_buffer(self.buffer, cfg)
+        self.test_buffer = self.buffer
         self.streams = make_streams(cfg.train.seed, device=self.device)
         self.logger: Optional[MetricsLogger] = None
         self.ckpt = None
@@ -124,8 +123,9 @@ class Experiment:
                     "model.reward_head_mode='twohot' is incompatible with "
                     "model.use_pallas (the fused kernel scores scalar huber)"
                 )
-        obs, env_state = self.env.reset_stacked(self.streams["reset"])
-        example = self._example_transition(obs, env_state)
+        lead = (cfg.train.n_envs,) if cfg.train.n_envs > 1 else ()
+        obs, env_state = self.env.reset_stacked(self.streams["reset"], batch_shape=lead)
+        example = self._example_transition(obs, env_state, lead)
         model = MAVAE.from_config(
             cfg.model, self.spec, device=self.device, generator=self.streams["model"]
         )
@@ -133,7 +133,10 @@ class Experiment:
             train_state=create_train_state(model, cfg.train),
             buffer_state=self.buffer.init(example),
             test_buffer_state=self.test_buffer.init(example),
-            env=EnvCarry(obs=obs, state=env_state),
+            env=EnvCarry(
+                obs=obs, state=env_state,
+                policy=init_policy_carry(self.env, self.spec, cfg, cfg.train.n_envs),
+            ),
         )
         self._epoch_fn = make_epoch_fn(
             self.env, self.spec, self.buffer, self.test_buffer, cfg, self.streams
@@ -150,19 +153,20 @@ class Experiment:
             self._try_resume()
         return self
 
-    def _example_transition(self, obs, env_state) -> GroupedTransition:
+    def _example_transition(self, obs, env_state, lead=()) -> GroupedTransition:
+        """A transition of the buffer's layout, with the env axis ``lead``."""
         discrete = self.cfg.env.discrete_actions
         if discrete:
-            zero_actions = torch.zeros(self.spec.n_agents, dtype=torch.int32, device=self.device)
+            zero_actions = torch.zeros(*lead, self.spec.n_agents, dtype=torch.int32, device=self.device)
         else:
-            zero_actions = torch.zeros(self.spec.n_agents, self.spec.act_dims[0], device=self.device)
+            zero_actions = torch.zeros(*lead, self.spec.n_agents, self.spec.act_dims[0], device=self.device)
         next_obs, _, rewards, _, _ = self.env.step_stacked(env_state, zero_actions)
         return GroupedTransition(
             obs=stacked_to_grouped(self.spec, obs),
-            actions=zero_actions_grouped(self.spec, None, discrete, self.device),
+            actions=zero_actions_grouped(self.spec, lead[0] if lead else None, discrete, self.device),
             next_obs=stacked_to_grouped(self.spec, next_obs),
             rewards=rewards,
-            done=torch.zeros((), device=self.device),
+            done=torch.zeros(lead, device=self.device),
         )
 
     # ----------------------------------------------------------- checkpoint
@@ -183,6 +187,7 @@ class Experiment:
             "test_buffer": buffer(c.test_buffer_state),
             "env_obs": list(c.env.obs),
             "env_state": list(c.env.state),
+            "env_policy": list(c.env.policy),
             "rng": {name: g.get_state() for name, g in self.streams.items()},
         }
 
@@ -216,6 +221,9 @@ class Experiment:
             env=EnvCarry(
                 obs=StackedObs(*to_dev(p["env_obs"])),
                 state=MPEState(*to_dev(p["env_state"])),
+                # a checkpoint from before the policy carry restarts it,
+                # which is where a fresh episode's policy starts too
+                policy=tuple(to_dev(p["env_policy"])) if "env_policy" in p else c.env.policy,
             ),
         )
         for name, g in self.streams.items():

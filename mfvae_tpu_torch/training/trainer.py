@@ -13,12 +13,15 @@ taken per eval batch and averaged, as the JAX package does.  The train
 state is updated in place: one forward and one backward per train step,
 then one Adam update.
 
-Each epoch: collect ``sample_num`` random-action env steps (discrete, or
-uniform in the Box for continuous actions) into the train buffer, run
-``train_num`` train steps on uniform samples, collect ``sample_num`` more
-steps into the test buffer, evaluate ``test_num`` batches.  Noise comes from named generators (``rng.make_streams``):
-actions from "act", env resets from "reset", buffer samples from "sample",
-train-step eps from "train", eval samples and eps from "eval".
+Each epoch: collect ``sample_num`` env steps under the collect policy
+(uniform random actions by default: discrete, or uniform in the Box for
+continuous actions) into the train buffer, run ``train_num`` train steps
+on uniform samples (or on windows, under ``unroll_steps``), collect
+``sample_num`` more steps into the test buffer, evaluate ``test_num``
+batches.  Noise comes from named generators (``rng.make_streams``):
+actions and policy draws from "act", env resets from "reset", buffer
+samples from "sample", train-step eps from "train", eval samples and eps
+from "eval".
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from mfvae_tpu_torch.config import ExperimentConfig, LossConfig, TrainConfig
-from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer
+from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer, tree_map
 from mfvae_tpu_torch.data.transitions import GroupedTransition, VaeBatch, vae_batch_from_grouped
 from mfvae_tpu_torch.envs.mpe import tag_prey_rel_slice
+from mfvae_tpu_torch.envs.policies import make_collect_policy, reset_carry
 from mfvae_tpu_torch.models.losses import LossOutputs, combine_losses, elbo_losses
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec
 from mfvae_tpu_torch.ops.fused_elbo import huber_mean
@@ -122,6 +126,19 @@ def _clip_by_global_norm(params, max_norm: float) -> None:
         g.mul_(factor)
 
 
+def apply_update(state: TrainState, loss: torch.Tensor) -> None:
+    """One optimizer update from ``loss``: backward, the global-norm clip
+    when ``grad_clip`` > 0, Adam at the schedule's lr; counts the step."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if state.grad_clip > 0:
+        _clip_by_global_norm(state.model.parameters(), state.grad_clip)
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.lr_fn(state.step)
+    state.optimizer.step()
+    state.step += 1
+
+
 def make_train_step(
     loss_cfg: LossConfig,
     mode: str = "Adam",
@@ -184,14 +201,7 @@ def make_train_step(
                 recon_s, recon_r, batch.next_state, reward_targets, mu, logvar,
                 loss_cfg, kl_scale=kl_scale, s_col_weight=s_col_weight,
             )
-        state.optimizer.zero_grad(set_to_none=True)
-        out.loss.backward()
-        if state.grad_clip > 0:
-            _clip_by_global_norm(model.parameters(), state.grad_clip)
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.lr_fn(state.step)
-        state.optimizer.step()
-        state.step += 1
+        apply_update(state, out.loss)
         return state, LossOutputs(*(x.detach() for x in out))
 
     return train_step
@@ -260,6 +270,7 @@ def build_s_col_weight(spec: AgentSpec, cfg: ExperimentConfig, device=None) -> O
 class EnvCarry(NamedTuple):
     obs: tuple  # StackedObs from env.reset_stacked
     state: tuple  # MPEState
+    policy: tuple = ()  # the collect policy's carry; () when it keeps none
 
 
 class EpochCarry(NamedTuple):
@@ -323,6 +334,50 @@ def make_action_sampler(env, spec: AgentSpec):
     return sample, group_actions
 
 
+def _resolve_collect_policy(env, spec: AgentSpec, cfg: ExperimentConfig, sample_fn):
+    """None for the reference's random rollouts, else a scripted policy
+    (``envs/policies.py``) whose mixture draws from ``sample_fn``.  The
+    learned Q-policies (``vdn:<path>``) are not ported (ROADMAP M16)."""
+    name = cfg.train.collect_policy
+    if name.startswith("vdn:"):
+        raise NotImplementedError(
+            f"train.collect_policy={name!r} is not ported to the PyTorch package yet (ROADMAP M16)"
+        )
+    return make_collect_policy(
+        env, spec, name, cfg.train.collect_epsilon, sample_fn, mix_frac=cfg.train.collect_mix_frac
+    )
+
+
+def init_policy_carry(env, spec: AgentSpec, cfg: ExperimentConfig, n_envs: int = 1) -> tuple:
+    """The initial ``EnvCarry.policy`` of a fresh experiment: () for
+    stateless collection, else the policy's ``init_carry()``, with a
+    leading [n_envs] axis on the batched path."""
+    sample_fn, _ = make_action_sampler(env, spec)
+    policy = _resolve_collect_policy(env, spec, cfg, sample_fn)
+    if not hasattr(policy, "init_carry"):
+        return ()
+    return policy.init_carry((n_envs,) if n_envs > 1 else ())
+
+
+def shard_buffer(buffer: ItemBuffer, cfg: ExperimentConfig) -> ItemBuffer:
+    """The batched epoch's buffer (``train.n_envs`` > 1): one shard per
+    env, splitting the capacity (a full one per shard would multiply the
+    device memory by n_envs), each giving batch_size / n_envs items to
+    every global batch."""
+    e = cfg.train.n_envs
+    if cfg.buffer.batch_size % e:
+        raise ValueError(
+            f"train.n_envs={e} needs buffer.batch_size ({cfg.buffer.batch_size}) divisible by n_envs"
+        )
+    local_bs = cfg.buffer.batch_size // e
+    return ItemBuffer(
+        max_length=max(buffer.max_length // e, local_bs),
+        min_length=max(buffer.min_length // e, 1),
+        sample_batch_size=local_bs,
+        shards=e,
+    )
+
+
 def make_phase_fns(
     env,
     spec: AgentSpec,
@@ -331,41 +386,101 @@ def make_phase_fns(
     cfg: ExperimentConfig,
     streams: Dict[str, torch.Generator],
 ):
-    """(collect, train_phase, test_phase) closures over the run's streams."""
+    """(collect, train_phase, test_phase) closures over the run's streams.
+
+    With ``train.n_envs`` = E > 1 this is the JAX package's batched epoch
+    (``make_batched_epoch_fn``): the buffers are sharded
+    (``shard_buffer``), the env carry has a leading [E] axis, the E envs
+    step in lockstep and each env auto-resets on its own through
+    ``torch.where``, with no host sync per step.  With
+    ``train.unroll_steps`` = W > 1 each train step is the multi-step
+    objective (``training/unroll.py``) on windows that never straddle a
+    collection phase."""
     s_col_weight = build_s_col_weight(spec, cfg, env.device)
-    train_step = make_train_step(
-        cfg.loss, cfg.train.mode, cfg.train.popart_beta,
-        use_pallas=cfg.model.use_pallas, s_col_weight=s_col_weight,
-    )
+    W, E = cfg.train.unroll_steps, cfg.train.n_envs
+    if W > 1:
+        from mfvae_tpu_torch.training.unroll import make_unroll_train_step  # it imports this module
+
+        if buffer.max_length % cfg.train.sample_num:
+            what = (
+                f"the per-shard capacity ({buffer.max_length} = max(max_size // n_envs, "
+                f"batch_size // n_envs)) with n_envs={E}" if buffer.shards
+                else f"buffer.max_size ({buffer.max_length})"
+            )
+            raise ValueError(
+                f"unroll_steps > 1 needs {what} divisible by train.sample_num "
+                f"({cfg.train.sample_num}) so windows never straddle collection phases"
+            )
+        unroll_step = make_unroll_train_step(
+            spec, cfg.loss, W, cfg.train.mode,
+            use_pallas=cfg.model.use_pallas,
+            stop_gradient=cfg.train.unroll_stop_gradient,
+            mean_feedback=cfg.train.unroll_mean_feedback,
+            s_col_weight=s_col_weight,
+        )
+    else:
+        train_step = make_train_step(
+            cfg.loss, cfg.train.mode, cfg.train.popart_beta,
+            use_pallas=cfg.model.use_pallas, s_col_weight=s_col_weight,
+        )
     test_step = make_test_step(cfg.loss, cfg.train.mode, s_col_weight=s_col_weight)
     sample_actions, group_actions = make_action_sampler(env, spec)
+    policy = _resolve_collect_policy(env, spec, cfg, sample_actions)
+    stateful = hasattr(policy, "init_carry")
+    lead = (E,) if E > 1 else ()
+
+    def act(env_c: EnvCarry, pol_c):
+        if policy is None:
+            return pol_c, sample_actions(streams["act"], lead)
+        if stateful:
+            return policy.step(pol_c, env_c.obs, env_c.state, streams["act"])
+        return pol_c, policy(env_c.state, streams["act"])
 
     def collect(env_c: EnvCarry, buf_state: BufferState, which_buffer: ItemBuffer):
-        obs, env_state = env_c
+        # the policy carry resumes from the previous phase or epoch, so an
+        # episode spanning a phase boundary keeps its policy state
+        pol_c = env_c.policy if env_c.policy or not stateful else policy.init_carry(lead)
         for _ in range(cfg.train.sample_num):
-            actions = sample_actions(streams["act"])
-            next_obs, next_state, rewards, done, _ = env.step_stacked(env_state, actions)
+            pol_c, actions = act(env_c, pol_c)
+            next_obs, next_state, rewards, done, _ = env.step_stacked(env_c.state, actions)
             tr = GroupedTransition(
-                obs=stacked_to_grouped(spec, obs),
+                obs=stacked_to_grouped(spec, env_c.obs),
                 actions=group_actions(actions),
                 next_obs=stacked_to_grouped(spec, next_obs),
                 rewards=rewards,
-                done=torch.max(done.to(torch.float32)),
+                done=torch.amax(done.to(torch.float32), dim=-1),
             )
             buf_state = which_buffer.add(buf_state, tr)
-            # auto-reset at episode end; reading the flag waits for the step
-            if bool(torch.all(done)):
-                obs, env_state = env.reset_stacked(streams["reset"])
+            if E > 1:
+                # every env's reset is drawn and chosen on the device
+                done_all = torch.all(done, dim=-1)
+
+                def pick(a, b):
+                    return torch.where(done_all.reshape(lead + (1,) * (a.dim() - 1)), a, b)
+
+                reset_obs, reset_state = env.reset_stacked(streams["reset"], batch_shape=lead)
+                env_c = EnvCarry(tree_map(pick, reset_obs, next_obs), tree_map(pick, reset_state, next_state))
+                if stateful:
+                    pol_c = reset_carry(policy, pol_c, done_all)
+            elif bool(torch.all(done)):
+                # auto-reset at episode end; reading the flag waits for the step
+                env_c = EnvCarry(*env.reset_stacked(streams["reset"]))
+                if stateful:
+                    pol_c = policy.init_carry()
             else:
-                obs, env_state = next_obs, next_state
-        return EnvCarry(obs=obs, state=env_state), buf_state
+                env_c = EnvCarry(obs=next_obs, state=next_state)
+        return env_c._replace(policy=pol_c), buf_state
 
     def train_phase(train_state: TrainState, buf_state: BufferState):
         outs = []
         for _ in range(cfg.train.train_num):
-            batch = buffer.sample(buf_state, streams["sample"])
-            vb = vae_batch_from_grouped(spec, batch.experience)
-            train_state, o = train_step(train_state, vb, streams["train"])
+            if W > 1:
+                wb = buffer.sample_window(buf_state, streams["sample"], W, block=cfg.train.sample_num)
+                train_state, o = unroll_step(train_state, wb.experience, streams["train"])
+            else:
+                batch = buffer.sample(buf_state, streams["sample"])
+                vb = vae_batch_from_grouped(spec, batch.experience)
+                train_state, o = train_step(train_state, vb, streams["train"])
             outs.append(o)
         return train_state, LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
 
@@ -387,7 +502,8 @@ def make_epoch_fn(
     cfg: ExperimentConfig,
     streams: Dict[str, torch.Generator],
 ):
-    """One epoch: EpochCarry -> (EpochCarry, EpochMetrics)."""
+    """One epoch: EpochCarry -> (EpochCarry, EpochMetrics); batched when
+    ``train.n_envs`` > 1 (see ``make_phase_fns``)."""
     collect, train_phase, test_phase = make_phase_fns(env, spec, buffer, test_buffer, cfg, streams)
 
     def epoch(carry: EpochCarry) -> Tuple[EpochCarry, EpochMetrics]:

@@ -1,0 +1,164 @@
+"""Multi-step open-loop (unroll) training of the world model (mirror of
+``mfvae_tpu/training/unroll.py``).
+
+Windows of W consecutive transitions are rolled forward with the model's
+own predicted state fed back as the next observation, and the ELBO is
+applied at every horizon, by default back-propagating through the
+feedback (BPTT).  The feedback is the sampled reconstruction, or with
+``mean_feedback`` the posterior-mean prediction (``MAVAE.mean_call``, the
+serving path of ``inference.WorldModel``); the per-step loss scores the
+sampled reconstruction either way.  ``stop_gradient`` detaches the
+feedback at every step boundary.
+
+The per-step, per-sample losses are masked after the first stored
+``done`` of a window and pooled over the valid (sample, step) slots, so
+W = 1 with every slot valid is the one-step ELBO.  The JAX scan over W is
+a Python loop here.  Each step's eps is drawn from the generator (private,
+then shared, as ``MAVAE.forward`` draws) or given: ``eps`` [W, B, A, F] in
+grouped agent order and ``eps_shared`` [W, B, S].
+
+Only train.mode='Adam' (PopArt targets are not defined over W steps) and
+the plain route (the kernels are a one-step program) are supported, as in
+the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from mfvae_tpu_torch.config import LossConfig
+from mfvae_tpu_torch.data.transitions import GroupedTransition
+from mfvae_tpu_torch.models.losses import LossOutputs, _elem_loss, combine_losses, twohot_ce_rows
+from mfvae_tpu_torch.models.mavae import AgentSpec, GroupedBatch, agent_order_concat, state_to_grouped
+from mfvae_tpu_torch.training.trainer import _kl_scale, apply_update
+
+
+def _huber_rows(x: torch.Tensor, y: torch.Tensor, delta: float) -> torch.Tensor:
+    """Per-sample huber, the mean over trailing dims -> [B]."""
+    abs_err = torch.abs((x - y).to(torch.float32))
+    quadratic = torch.clamp(abs_err, max=delta)
+    linear = abs_err - quadratic
+    per_el = 0.5 * quadratic * quadratic + delta * linear
+    return torch.mean(per_el.reshape(per_el.shape[0], -1), dim=-1)
+
+
+def _mse_rows(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    d = (x - y).to(torch.float32)
+    return torch.mean((d * d).reshape(d.shape[0], -1), dim=-1)
+
+
+def _kl_rows(mu: torch.Tensor, logvar: torch.Tensor, free_bits: float) -> torch.Tensor:
+    """Per-sample KL summed over the latent dims -> [B]."""
+    mu = mu.to(torch.float32)
+    logvar = logvar.to(torch.float32)
+    per_dim = -0.5 * (1.0 + logvar - mu * mu - torch.exp(logvar))
+    if free_bits > 0.0:
+        per_dim = torch.clamp(per_dim, min=free_bits)
+    return torch.sum(per_dim.reshape(per_dim.shape[0], -1), dim=-1)
+
+
+def make_unroll_loss_fn(
+    spec: AgentSpec,
+    loss_cfg: LossConfig,
+    unroll_steps: int,
+    stop_gradient: bool = False,
+    mean_feedback: bool = False,
+    s_col_weight=None,
+) -> Callable:
+    """``loss_fn(model, wbatch, generator=None, kl_scale=None, eps=None,
+    eps_shared=None) -> LossOutputs`` over a window batch (a
+    GroupedTransition with leaves [B, W, ...])."""
+    W = int(unroll_steps)
+    if W < 1:
+        raise ValueError(f"unroll_steps must be >= 1, got {unroll_steps}")
+
+    def loss_fn(model, wbatch: GroupedTransition, generator=None, kl_scale=None, eps=None, eps_shared=None):
+        obs = tuple(o[:, 0] for o in wbatch.obs)
+        done = wbatch.done.to(torch.float32)  # [B, W]
+        mask = torch.ones_like(done[:, 0])
+        sums = []
+        for t in range(W):
+            batch = GroupedBatch(obs=obs, actions=tuple(a[:, t] for a in wbatch.actions))
+            tgt_s = agent_order_concat(spec, tuple(o[:, t] for o in wbatch.next_obs))
+            tgt_r = wbatch.rewards[:, t]
+            recon_s, recon_r, mu, logvar = model(
+                batch, None, generator,
+                None if eps is None else eps[t], None if eps_shared is None else eps_shared[t],
+            )
+            if s_col_weight is not None:
+                # the column lever: a weighted column mean per sample
+                elem = _elem_loss(recon_s, tgt_s, loss_cfg)
+                s_rows = torch.sum(elem * s_col_weight, dim=-1) / torch.sum(s_col_weight)
+            elif loss_cfg.use_huber:
+                s_rows = _huber_rows(recon_s, tgt_s, loss_cfg.huber_delta)
+            else:
+                s_rows = _mse_rows(recon_s, tgt_s)
+            if recon_r.dim() == tgt_r.dim() + 1:
+                # two-hot reward head: logits [B, A, K], cross-entropy per sample
+                r_rows = torch.mean(twohot_ce_rows(recon_r, tgt_r), dim=-1)
+            elif loss_cfg.use_huber:
+                r_rows = _huber_rows(recon_r, tgt_r, loss_cfg.huber_delta)
+            else:
+                r_rows = _mse_rows(recon_r, tgt_r)
+            kl_rows = _kl_rows(mu, logvar, loss_cfg.free_bits)
+            if loss_cfg.contact_weight > 0.0:
+                # contact transitions count (1 + contact_weight)x in the state branch
+                contact = (torch.amax(tgt_r, dim=-1) > loss_cfg.contact_threshold).to(torch.float32)
+                s_w = mask * (1.0 + loss_cfg.contact_weight * contact)
+            else:
+                s_w = mask
+            sums.append(torch.stack([
+                torch.sum(s_rows * s_w), torch.sum(r_rows * mask), torch.sum(kl_rows * mask),
+                torch.sum(mask), torch.sum(s_w),
+            ]))
+            if t + 1 == W:
+                break
+            # windows die at episode boundaries; the prediction feeds back
+            mask = mask * (1.0 - done[:, t])
+            fb = model.mean_call(batch)[0] if mean_feedback else recon_s
+            if stop_gradient:
+                fb = fb.detach()
+            obs = state_to_grouped(spec, fb)
+        s_sum, r_sum, kl_sum, w_sum, sw_sum = torch.stack(sums).sum(dim=0)
+        total_w = torch.clamp(w_sum, min=1.0)
+        return combine_losses(
+            s_sum / torch.clamp(sw_sum, min=1.0), r_sum / total_w, kl_sum / total_w, loss_cfg, kl_scale
+        )
+
+    return loss_fn
+
+
+def make_unroll_train_step(
+    spec: AgentSpec,
+    loss_cfg: LossConfig,
+    unroll_steps: int,
+    mode: str = "Adam",
+    use_pallas: bool = False,
+    stop_gradient: bool = False,
+    mean_feedback: bool = False,
+    s_col_weight=None,
+) -> Callable:
+    """``(state, wbatch, generator=None, eps=None, eps_shared=None) ->
+    (state, LossOutputs)``: one Adam update on the multi-step objective
+    (with the global-norm clip and KL annealing of the one-step step).
+    ``wbatch`` comes from ``ItemBuffer.sample_window``."""
+    if mode != "Adam":
+        raise NotImplementedError(
+            "unroll_steps > 1 supports train.mode='Adam' only (PopArt reward "
+            "normalization is undefined for the multi-step objective)"
+        )
+    if use_pallas:
+        raise NotImplementedError(
+            "unroll_steps > 1 is incompatible with model.use_pallas (the "
+            "fused kernel is a one-step program)"
+        )
+    loss_fn = make_unroll_loss_fn(spec, loss_cfg, unroll_steps, stop_gradient, mean_feedback, s_col_weight)
+
+    def train_step(state, wbatch: GroupedTransition, generator=None, eps=None, eps_shared=None):
+        out = loss_fn(state.model, wbatch, generator, _kl_scale(loss_cfg, state.step), eps, eps_shared)
+        apply_update(state, out.loss)
+        return state, LossOutputs(*(x.detach() for x in out))
+
+    return train_step

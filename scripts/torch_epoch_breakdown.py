@@ -2,15 +2,19 @@
 CUDA card.
 
 Runs the default config (simple_tag 30/10/20, batch 128, bf16, full
-widths), or the YAML config named by ``--config``, with model.use_pallas
-true and false.  Per route: one warm-up
+widths), or the YAML config named by ``--config`` with ``a.b=c``
+overrides, with model.use_pallas true and false (plain only where the
+kernels are refused: unroll_steps > 1).  With train.n_envs > 1 the epoch
+is the batched one.  Per route: one warm-up
 epoch, then ``--epochs`` epochs whose four phases (collect, train,
 test-collect, eval) are each timed on the host clock between device syncs,
-then one epoch under torch.profiler for the device's busy time and its
-kernels by device time.  Prints one JSON line per route.
+then one collect phase under ``torch.cuda.set_sync_debug_mode("warn")``,
+which counts the host syncs it makes, then one epoch under torch.profiler
+for the device's busy time and its kernels by device time.  Prints one
+JSON line per route.
 
-    python scripts/torch_epoch_breakdown.py [--epochs 3] [--config examples/world_model.yaml]
-        [--out results/breakdown.jsonl]
+    python scripts/torch_epoch_breakdown.py [--epochs 3] [--config examples/pursuit_collection.yaml]
+        [train.n_envs=4 ...] [--out results/breakdown.jsonl]
 
 Kernel names are cut to 160 characters.  ``--out`` appends the same JSON
 lines to a file.
@@ -23,12 +27,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from mfvae_tpu_torch.config import ExperimentConfig, load_config  # noqa: E402
+from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides, load_config  # noqa: E402
 from mfvae_tpu_torch.ops import fused_elbo as ops  # noqa: E402
 from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
 from mfvae_tpu_torch.training.trainer import EpochCarry, make_phase_fns  # noqa: E402
@@ -42,8 +47,33 @@ def timed(fn, *args):
     return out, 1e3 * (time.perf_counter() - t)
 
 
-def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "") -> dict:
+def make_config(config: str, overrides) -> ExperimentConfig:
     cfg = load_config(config) if config else ExperimentConfig()
+    apply_overrides(cfg, list(overrides))
+    return cfg
+
+
+def count_syncs(fn, *args):
+    """fn(*args), the number of synchronizing CUDA calls it made and the
+    source lines that made them, with their counts."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return out, sum(where.values()), where
+
+
+def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "", overrides=()) -> dict:
+    cfg = make_config(config, overrides)
     cfg.model.use_pallas = use_pallas
     cfg.train.log_dir = f"{tmp}/results"
     cfg.train.checkpoint_dir = ""
@@ -65,6 +95,8 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "") -> dict
             continue  # warm-up
         for k, v in zip(phases, (t_c, t_t, t_tc, t_e, 1e3 * (time.perf_counter() - t0))):
             phases[k].append(v)
+    (env_c, buf), collect_syncs, sync_sites = count_syncs(collect, carry.env, carry.buffer_state, exp.buffer)
+    carry = carry._replace(env=env_c, buffer_state=buf)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,7 +123,11 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "") -> dict
     kernels.sort(key=lambda k: -k[1])
     return {
         "config": config or "default",
+        "overrides": list(overrides),
         "use_pallas": use_pallas,
+        "host_syncs_in_one_collect": collect_syncs,
+        "host_sync_sites": sync_sites,
+        "env_steps_per_collect": cfg.train.sample_num,
         "phase_ms_median": {k: statistics.median(v) for k, v in phases.items()},
         "phase_ms_all": phases,
         "profiled_epoch_wall_ms": wall_ms,
@@ -107,6 +143,7 @@ def main():
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--config", default="", help="a YAML config; the default ExperimentConfig when empty")
     p.add_argument("--out", default="", help="append the JSON lines to this file too")
+    p.add_argument("overrides", nargs="*", help="a.b=c config overrides")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -117,9 +154,11 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card, flush=True)
+    cfg = make_config(args.config, args.overrides)
+    routes = (False,) if cfg.train.unroll_steps > 1 else (True, False)
     with tempfile.TemporaryDirectory() as tmp:
-        for use_pallas in (True, False):
-            line = json.dumps({"card": card, **breakdown(use_pallas, args.epochs, tmp, args.config)})
+        for use_pallas in routes:
+            line = json.dumps({"card": card, **breakdown(use_pallas, args.epochs, tmp, args.config, args.overrides)})
             print(line, flush=True)
             if args.out:
                 Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -6,8 +6,12 @@ golden (tests/test_torch_experiment.py, tests/test_torch_goldens.py).
 This script measures that spread on the CPU: the JAX run of one config of
 tests/test_pinned_goldens.py for seeds 0..N-1 and the port's run for the
 same seeds, printing min/max of loss_train and loss_test per package.
+``pursuit_batched_small`` and ``unroll_sticky_small`` are parity_small
+with the collection and unroll options of tests/test_torch_goldens.py
+set in both packages.
 
-    JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N] [--config parity_small|det_small|popart_small]
+    JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N] [--config parity_small|det_small|popart_small|
+        pursuit_batched_small|unroll_sticky_small]
 """
 
 import argparse
@@ -23,20 +27,34 @@ jax.config.update("jax_default_matmul_precision", "highest")
 sys.path.insert(0, ".")
 from tests.test_pinned_goldens import golden_configs, run_one  # noqa: E402
 from tests.test_torch_experiment import parity_small  # noqa: E402
-from tests.test_torch_goldens import det_small, popart_small  # noqa: E402
+from tests.test_torch_goldens import CONFIGS  # noqa: E402
+
+import torch  # noqa: E402
 
 from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
 
-PORT_CONFIGS = {"parity_small": parity_small, "det_small": det_small, "popart_small": popart_small}
+PORT_CONFIGS = {"parity_small": parity_small, **CONFIGS}
+# the options each derived config sets on parity_small, for the JAX side
+DERIVED = {
+    "pursuit_batched_small": {"collect_policy": "pursuit", "n_envs": 2},
+    "unroll_sticky_small": {"unroll_steps": 4, "collect_policy": "sticky", "collect_mix_frac": 0.9,
+                            "grad_clip": 10.0},
+}
+
+
+def jax_config(tmp: str, config: str, seed: int):
+    cfg = golden_configs(tmp)["parity_small" if config in DERIVED else config]
+    for k, v in DERIVED.get(config, {}).items():
+        setattr(cfg.train, k, v)
+    cfg.train.seed = seed
+    return cfg
 
 
 def main(n: int, config: str) -> None:
     out = {"jax": [], "torch": []}
     for seed in range(n):
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = golden_configs(tmp)[config]
-            cfg.train.seed = seed
-            out["jax"].append(run_one(cfg))
+            out["jax"].append(run_one(jax_config(tmp, config, seed)))
         with tempfile.TemporaryDirectory() as tmp:
             r = Experiment(PORT_CONFIGS[config](tmp, seed), device="cpu").setup().run()
             out["torch"].append({"loss_train": r["loss_train"], "loss_test": r["loss_test"]})
@@ -53,4 +71,5 @@ if __name__ == "__main__":
     ap.add_argument("n", nargs="?", type=int, default=8, help="number of seeds, from 0")
     ap.add_argument("--config", choices=sorted(PORT_CONFIGS), default="parity_small")
     args = ap.parse_args()
+    torch.set_num_threads(1)  # as the tests run the port
     main(args.n, args.config)

@@ -130,14 +130,14 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("env.backend=host", "M18"), ("train.collect_policy=pursuit", "M11"),
-    ("train.n_envs=2", "M11"), ("train.unroll_steps=2", "M12"),
+    ("env.backend=host", "M18"), ("train.collect_policy=vdn:x.npz", "M16"),
+    ("train.collect_policy=imagination:x.msgpack", "M15"), ("train.n_envs=2 mesh.enable=true", "M17"),
     ("mesh.enable=true", "M17"), ("env.name=MPE_simple_spread_v3", "M14"),
     ("train.bug_compat_rng=true", "M20"), ("train.profile_epochs=1", "M20"),
     ("model.remat=true", "M20"),
 ])
 def test_unported_options_refused(tmp_path, override, item):
-    cfg, device = parse_args([REFERENCE_YAML, override, "--device", "cpu"])
+    cfg, device = parse_args([REFERENCE_YAML, *override.split(), "--device", "cpu"])
     cfg.env.num_good_agents, cfg.env.num_adversaries, cfg.env.num_obs = 1, 1, 1
     cfg.train.log_dir = str(tmp_path)
     cfg.train.checkpoint_dir = ""

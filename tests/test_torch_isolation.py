@@ -28,5 +28,7 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("mfvae_tpu_torch/ops/fused_elbo.py", "mfvae_tpu_torch/training/trainer.py",
-                 "mfvae_tpu_torch/training/popart.py", "chip_smoke.py"):
+                 "mfvae_tpu_torch/training/popart.py", "mfvae_tpu_torch/envs/policies.py",
+                 "mfvae_tpu_torch/training/unroll.py", "mfvae_tpu_torch/inference.py",
+                 "mfvae_tpu_torch/rollout_eval.py", "chip_smoke.py"):
         assert must in names

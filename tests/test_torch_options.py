@@ -18,7 +18,8 @@
 - The joined eval under ``loss.contact_weight`` equals the mean of the
   per-batch losses.
 - ``Experiment(cfg, device="cpu")`` runs every example config and option
-  this slice opened, at tiny widths.
+  of the port at tiny widths, the collection and unroll configs
+  included (unroll_steps 8 over the 16-step collection blocks).
 
 Parameters come from the JAX ``init`` through ``params_from_jax``; inputs
 from numpy seeds; float32 on both sides, JAX matmul precision "highest"
@@ -413,6 +414,11 @@ RUNS = {
     "world_model.yaml": [],
     "det_quality.yaml": [],
     "continuous_tag.yaml": [],
+    "pursuit_collection.yaml": [],
+    "episode_mix_collection.yaml": [],
+    "world_model_unroll.yaml": [],
+    "world_model_actions.yaml": [],
+    "world_model_control.yaml": [],
     "twohot+pred_state+action_delta_head": [
         "model.reward_head_mode=twohot", "model.reward_head_input=pred_state",
         "model.fused_decoders=false", "model.action_delta_head=true"],
@@ -433,6 +439,11 @@ def test_experiment_runs(tmp_path, name, use_pallas):
     if use_pallas and plain_only:
         # the JAX package's guards: the kernels score scalar, unweighted huber
         with pytest.raises(ValueError):
+            exp.setup()
+        return
+    if use_pallas and cfg.train.unroll_steps > 1:
+        # and they are a one-step program
+        with pytest.raises(NotImplementedError, match="use_pallas"):
             exp.setup()
         return
     result = exp.setup().run()
