@@ -66,9 +66,33 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    first step is bit-equal to predict (and its time by CUDA events);
    rollout_accuracy at horizons (1, 5, 25), n_starts 256, burn_in 32,
    under random and pursuit collection, every metric finite.
-16. The kernel list as one JSON line, the card, and the result line.
+16. The other scenarios at the default population (30 adversaries, 10 good
+   agents, 20 obstacles, as the experiment passes them to make):
+   simple_spread (one group of 10, obs 60), simple_adversary (1 + 10,
+   obs 40/42) and simple_world_comm (the leader with 20 actions, 29
+   adversaries, 10 good agents: obs 156/164/150, Σobs 6,412), each with
+   the kernels for 1 epoch (K1 = K2 = 10, K3 = 20), on plain ops for 1
+   epoch (no launches) and one train step by both routes (rtol 1e-4).
+   K3 against its plain version at world_comm's state n = 820,736, twice
+   bit-equal, timed as in phase 3.
+17. Pursuit on simple_adversary: pursuit_collection.yaml with n_envs=4
+   and the kernels for 1 epoch (K1 = K2 = 10, K3 = 20); every stored
+   transition of each buffer shard shows its env's own goal (the good
+   agents' goal channel equals exactly one landmark's offset).
+18. Planning: through the control model of phase 13 (simple_tag, 40
+   agents) factorized repeat MPC and CEM (iters 3) with N = 64 candidates
+   of horizon H = 8, scored by the 30 adversaries' distance to the nearest
+   prey; the same two actors through the true dynamics (EnvDynamicsModel)
+   on simple_tag, and factorized MPC through it on simple_world_comm.
+   Each serves E = 8 episodes of T = 25 steps through eval_joint_policy,
+   the good agents at random; the adversary return beside a random
+   policy's on the same episodes, and ms per served step (CUDA events).
+   Every return finite; true-dynamics MPC beats random on simple_tag; an
+   [E]-batched call of each true-dynamics actor equals E per-episode calls
+   with the same draws.
+19. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-14 print their epoch walls, launches and losses.
+Phases 4-17 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -96,6 +120,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     import torch
 
     # ------------------------------------------------------------ 1. device
@@ -104,11 +129,13 @@ def main() -> None:
     try:
         from mfvae_tpu_torch.config import ExperimentConfig, load_config
         from mfvae_tpu_torch.data.transitions import vae_batch_from_grouped
+        from mfvae_tpu_torch.envs.mpe import make, tag_prey_rel_slice
         from mfvae_tpu_torch.inference import WorldModel
         from mfvae_tpu_torch.models.mavae import GroupedBatch
         from mfvae_tpu_torch.ops import fused_elbo as ops
+        from mfvae_tpu_torch.planning import CEMNoise, EnvDynamicsModel, eval_joint_policy, make_cem_actor, make_mpc_actor
         from mfvae_tpu_torch.rollout_eval import rollout_accuracy
-        from mfvae_tpu_torch.training.experiment import Experiment
+        from mfvae_tpu_torch.training.experiment import Experiment, build_spec
         from mfvae_tpu_torch.training import popart
         from mfvae_tpu_torch.training.trainer import make_action_sampler, make_train_step
         from mfvae_tpu_torch.utils import kernel_build
@@ -564,9 +591,149 @@ def main() -> None:
             accuracy[pol] = acc
             print(f"[15] rollout_accuracy {pol} ({time.perf_counter() - t0:.2f} s): {json.dumps(acc)}")
             check(all(math.isfinite(v) for v in acc.values()), f"rollout_accuracy {pol}: non-finite metric")
+        control_exp, control_wm = exp, wm  # served again by phase 18
         del exp, model, wm
 
-    # ------------------------------------------------------ 16. the kernel list
+        # ------------------------------------------------ 16. the other scenarios
+        t_phase = time.perf_counter()
+        expect = {
+            "spread": [(10, 60, 5)],
+            "adversary": [(1, 40, 5), (10, 42, 5)],
+            "world_comm": [(1, 156, 20), (29, 164, 5), (10, 150, 5)],
+        }
+        for short, groups_want in expect.items():
+            env_name = f"MPE_simple_{short}_v3"
+            exp, walls[f"{short}, kernels"], path_launches[short] = drive(
+                load_config(str(examples / "reference_parity.yaml"), [f"env.name={env_name}"]), True, 1,
+                f"{tmp}/{short}_pallas", "16", short)
+            groups = [(len(i), od, ad) for (od, ad), i in exp.spec.groups]
+            print(f"[16] {short}: groups (agents, obs, actions) {groups}, Σobs {sum(exp.spec.obs_dims)}")
+            check(groups == groups_want, f"{short}: groups {groups}, expected {groups_want}")
+            del exp
+            exp, walls[f"{short}, plain"], _ = drive(
+                load_config(str(examples / "reference_parity.yaml"), [f"env.name={env_name}"]), False, 1,
+                f"{tmp}/{short}_plain", "16", short)
+            both_routes(exp, "16", short)
+            del exp
+        n = b * (156 + 29 * 164 + 10 * 150)
+        x, y = 2 * randn(n), randn(n)
+        k3_case(f"f32 n={n} (world_comm state branch)", x, y, 1.0)
+        k3_wc = dict(
+            n=n, ms=median_ms(lambda: ops._huber_mean_cuda(x, y, 1.0)),
+            plain_ms=median_ms(lambda: ops._huber_mean_plain(x, y, 1.0)),
+            library_ms=median_ms(lambda: F.huber_loss(x, y, reduction="mean", delta=1.0)),
+        )
+        k3_wc["bound_ms"], k3_wc["bound_by"] = bound(4 * (2 * n + 1), 8 * n)
+        print(f"[16] K3 at world_comm's state branch: {json.dumps(k3_wc)}")
+        print(f"[16] phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+        t_phase = time.perf_counter()
+
+        # ------------------------------------------ 17. pursuit on simple_adversary
+        label = "pursuit_collection adversary n_envs=4"
+        exp, walls[f"{label}, kernels"], path_launches[label] = drive(
+            load_config(pursuit, ["train.n_envs=4", "env.name=MPE_simple_adversary_v3"]), True, 1,
+            f"{tmp}/adv_pursuit", "17", label)
+        st, goal = exp.carry.buffer_state, exp.carry.env.state.goal
+        good = st.data.obs[1][:, : st.size, 0]  # good agent 0 of every stored transition: [4, size, 42]
+        n_lm = exp.env.num_landmarks
+        match = (good[..., 2 : 2 + 2 * n_lm].reshape(4, st.size, n_lm, 2) == good[..., None, 0:2]).all(-1)
+        seen = match.to(torch.float32).argmax(-1)  # [4, size]: the goal each transition shows
+        print(f"[17] {label}: shards {tuple(st.data.rewards.shape)}, env goals {goal.tolist()}, "
+              f"goals shown per shard {[sorted(set(r)) for r in seen.tolist()]}")
+        check(bool((match.sum(-1) == 1).all()), f"{label}: a stored goal channel matches no single landmark")
+        # 2 x 128 steps of episodes of 1,000: no reset inside the epoch
+        check(bool((seen == goal[:, None]).all()), f"{label}: a shard holds another env's goal")
+        del exp
+        print(f"[17] phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+        t_phase = time.perf_counter()
+
+        # ------------------------------------------------------ 18. planning
+        env, spec = control_exp.env, control_exp.spec
+        n_adv, n_good = control_exp.cfg.env.num_adversaries, control_exp.cfg.env.num_good_agents
+        od_adv, prey = spec.obs_dims[0], tag_prey_rel_slice(control_exp.cfg.env.num_obs, n_adv, n_good)
+        E, T, N, Hz = 8, 25, 64, 8
+
+        def prey_distance(states, rewards):
+            """[M, n_adv]: minus each adversary's summed distance to its
+            nearest prey over the horizon, read off the predicted obs."""
+            h, m = states.shape[:2]
+            rel = states[:, :, : n_adv * od_adv].reshape(h, m, n_adv, od_adv)[..., prey]
+            rel = rel.reshape(h, m, n_adv, n_good, 2)
+            return -torch.sum(torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12).amin(-1), dim=0)
+
+        def evaluate(label, env_, spec_, actor=None, needs_state=False):
+            """E episodes of T steps: the adversaries under ``actor`` (at
+            random without one), the good agents at random."""
+            sample, _ = make_action_sampler(env_, spec_)
+            is_adv = torch.tensor([a.startswith(("adversary", "leadadversary")) for a in env_.agents], device=dev)
+
+            def policy(obs, state, g):
+                rand = sample(g, (E,))
+                if actor is None:
+                    return rand
+                return torch.where(is_adv, actor(obs, g, state) if needs_state else actor(obs, g), rand)
+
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = eval_joint_policy(env_, spec_, policy, n_episodes=E, ep_len=T,
+                                  generator=torch.Generator(device=dev).manual_seed(18))
+            end.record()
+            torch.cuda.synchronize()
+            ret = float(r[:, :, is_adv].sum((1, 2)).mean())
+            ms = start.elapsed_time(end) / T
+            print(f"[18] {label}: adversary return {ret:.4f} (mean over {E} episodes of {T} steps), "
+                  f"{ms:.3f} ms per served step (CUDA events)", flush=True)
+            check(tuple(r.shape) == (E, T, spec_.n_agents) and bool(torch.isfinite(r).all()),
+                  f"{label}: rewards {tuple(r.shape)}, or not finite")
+            return ret
+
+        adv_idx = tuple(range(n_adv))
+        tdm = EnvDynamicsModel(env, spec)
+        mpc_kw = dict(horizon=Hz, n_candidates=N, plan_agents=adv_idx, score_fn=prey_distance,
+                      factorized=True, candidate_mode="repeat")
+        cem_kw = dict(horizon=Hz, n_candidates=N, plan_agents=adv_idx, score_fn=prey_distance, iters=3)
+        returns = {"random, simple_tag": evaluate("random, simple_tag", env, spec)}
+        returns["MPC, learned model"] = evaluate(
+            "factorized repeat MPC, learned control model", env, spec, make_mpc_actor(control_wm, env, spec, **mpc_kw))
+        returns["CEM, learned model"] = evaluate(
+            "CEM iters=3, learned control model", env, spec, make_cem_actor(control_wm, env, spec, **cem_kw))
+        mpc_true, cem_true = make_mpc_actor(tdm, env, spec, **mpc_kw), make_cem_actor(tdm, env, spec, **cem_kw)
+        returns["MPC, true dynamics"] = evaluate(
+            "factorized repeat MPC, true dynamics", env, spec, mpc_true, needs_state=True)
+        returns["CEM, true dynamics"] = evaluate("CEM iters=3, true dynamics", env, spec, cem_true, needs_state=True)
+        wc_env = make("MPE_simple_world_comm_v3", device=dev, num_good_agents=10, num_adversaries=30, num_obs=20,
+                      max_steps=1000)
+        wc_spec = build_spec(wc_env)
+        returns["random, simple_world_comm"] = evaluate("random, simple_world_comm", wc_env, wc_spec)
+        wc_mpc = make_mpc_actor(EnvDynamicsModel(wc_env, wc_spec), wc_env, wc_spec, horizon=Hz, n_candidates=N,
+                                plan_agents=adv_idx, factorized=True, candidate_mode="repeat")
+        returns["MPC, true dynamics, simple_world_comm"] = evaluate(
+            "factorized repeat MPC (predicted reward), true dynamics, simple_world_comm", wc_env, wc_spec,
+            wc_mpc, needs_state=True)
+        print(f"[18] adversary returns: {json.dumps(returns)}")
+        check(returns["MPC, true dynamics"] > returns["random, simple_tag"],
+              "true-dynamics MPC does not beat random on simple_tag adversary return")
+        # an [E]-batched call equals E per-episode calls with the same draws
+        g = torch.Generator(device=dev).manual_seed(19)
+        obs, state = env.reset_stacked(g, batch_shape=(E,))
+
+        def episode(e):
+            return type(obs)(*(o[e] for o in obs)), type(state)(*(x[e] for x in state))
+
+        plans = make_action_sampler(env, spec)[0](g, (Hz, E, N))
+        batched = mpc_true(obs, None, state, plans=plans)
+        singles = torch.stack([mpc_true(episode(e)[0], None, episode(e)[1], plans=plans[:, e]) for e in range(E)])
+        check(torch.equal(batched, singles), "batched true-dynamics MPC differs from per-episode calls")
+        noise = cem_true.draw_noise(g, (E,))
+        batched = cem_true(obs, None, state, noise=noise)
+        singles = torch.stack([cem_true(episode(e)[0], None, episode(e)[1], noise=CEMNoise(
+            [x[:, e] for x in noise.gumbel], [x[:, e] for x in noise.others], noise.final[e])) for e in range(E)])
+        check(torch.equal(batched, singles), "batched true-dynamics CEM differs from per-episode calls")
+        print(f"[18] [E={E}]-batched true-dynamics MPC and CEM equal {E} per-episode calls with the same draws")
+        print(f"[18] phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+        del control_exp, control_wm
+
+    # ------------------------------------------------------ 19. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -584,10 +751,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[16] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[19] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[16] per-epoch wall ms, {label}: {w}")
+        print(f"[19] per-epoch wall ms, {label}: {w}")
+    print(f"[19] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

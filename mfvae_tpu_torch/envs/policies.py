@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from mfvae_tpu_torch.envs.mpe import SimpleTagEnv
+from mfvae_tpu_torch.envs.mpe import SimpleAdversaryEnv, SimpleTagEnv
 
 
 def _toward_discrete(delta: torch.Tensor) -> torch.Tensor:
@@ -62,11 +62,19 @@ def _tag_deltas(env: SimpleTagEnv, state) -> torch.Tensor:
     return torch.cat([chase, flee + wall_pull], dim=-2)
 
 
-def _adversary_deltas(env, state):
-    raise NotImplementedError(
-        "pursuit on simple_adversary needs SimpleAdversaryEnv, which is not "
-        "ported to the PyTorch package yet (ROADMAP M14)"
-    )
+def _adversary_deltas(env: SimpleAdversaryEnv, state) -> torch.Tensor:
+    """Per-agent displacement [..., A, 2] on simple_adversary: the good
+    agents head for the goal landmark; the adversary, which cannot see the
+    goal, heads for its nearest good agent."""
+    adv = state.agent_pos[..., :1, :]
+    good = state.agent_pos[..., 1:, :]
+    d = torch.linalg.vector_norm(adv[..., :, None, :] - good[..., None, :, :], dim=-1)
+    chase = _take(good, torch.argmin(d, dim=-1)) - adv
+    seek = SimpleAdversaryEnv.goal_pos(state) - good
+    return torch.cat([chase, seek], dim=-2)
+
+
+_DELTA_FNS = {SimpleTagEnv: _tag_deltas, SimpleAdversaryEnv: _adversary_deltas}
 
 
 def host_pursuit_actions(*args, **kwargs):
@@ -164,7 +172,8 @@ def make_collect_policy(env, spec, name: str, epsilon: float, sample_fn, mix_fra
     """A collection policy, or None for ``name='random'`` (the reference).
 
     - ``'pursuit'``: ``policy(state, generator)`` -> actions, scripted
-      chase/evade with an epsilon-uniform mixture per agent; dominant-axis
+      chase/evade (simple_tag) or chase/goal-seek (simple_adversary) with
+      an epsilon-uniform mixture per agent; dominant-axis
       moves for discrete actions, normalized forces for continuous ones.
     - ``'episode_mix'``: ``EpisodeMixPolicy`` over pursuit and the sampler.
     - ``'sticky'``: ``StickyRandomPolicy`` with hold probability
@@ -184,7 +193,12 @@ def make_collect_policy(env, spec, name: str, epsilon: float, sample_fn, mix_fra
         return StickyRandomPolicy(env, spec, sample_fn, mix_frac)
     if name != "pursuit":
         raise ValueError(f"unknown collect_policy {name!r}")
-    delta_fn = _tag_deltas if isinstance(env, SimpleTagEnv) else _adversary_deltas
+    delta_fn = next((fn for cls, fn in _DELTA_FNS.items() if isinstance(env, cls)), None)
+    if delta_fn is None:
+        raise ValueError(
+            f"collect_policy='pursuit' is not defined for {type(env).__name__}"
+            " (supported: simple_tag, simple_adversary)"
+        )
     discrete = getattr(env, "discrete_actions", True)
     n_agents = spec.n_agents
     epsilon = float(epsilon)

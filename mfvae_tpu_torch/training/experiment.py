@@ -19,7 +19,7 @@ import torch
 from mfvae_tpu_torch.config import ExperimentConfig, save_config
 from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer, tree_leaves, tree_map
 from mfvae_tpu_torch.data.transitions import GroupedTransition
-from mfvae_tpu_torch.envs.mpe import MPEState, StackedObs, make
+from mfvae_tpu_torch.envs.mpe import make
 from mfvae_tpu_torch.envs.spaces import get_space_size
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, zero_actions_grouped
 from mfvae_tpu_torch.rng import make_streams
@@ -218,9 +218,10 @@ class Experiment:
             train_state=ts,
             buffer_state=buffer(c.buffer_state, p["buffer"]),
             test_buffer_state=buffer(c.test_buffer_state, p["test_buffer"]),
+            # the scenario's own obs and state NamedTuples
             env=EnvCarry(
-                obs=StackedObs(*to_dev(p["env_obs"])),
-                state=MPEState(*to_dev(p["env_state"])),
+                obs=type(c.env.obs)(*to_dev(p["env_obs"])),
+                state=type(c.env.state)(*to_dev(p["env_state"])),
                 # a checkpoint from before the policy carry restarts it,
                 # which is where a fresh episode's policy starts too
                 policy=tuple(to_dev(p["env_policy"])) if "env_policy" in p else c.env.policy,

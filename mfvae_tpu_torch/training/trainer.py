@@ -268,8 +268,8 @@ def build_s_col_weight(spec: AgentSpec, cfg: ExperimentConfig, device=None) -> O
 
 
 class EnvCarry(NamedTuple):
-    obs: tuple  # StackedObs from env.reset_stacked
-    state: tuple  # MPEState
+    obs: tuple  # the env's class-tensor obs NamedTuple, from env.reset_stacked
+    state: tuple  # the env's state NamedTuple
     policy: tuple = ()  # the collect policy's carry; () when it keeps none
 
 
@@ -286,8 +286,11 @@ class EpochMetrics(NamedTuple):
 
 
 def stacked_to_grouped(spec: AgentSpec, stacked_obs) -> Tuple[torch.Tensor, ...]:
-    """An env's StackedObs (one tensor per agent class) in the spec's group
-    order; valid where classes and groups coincide (simple_tag)."""
+    """An env's class-tensor obs (one tensor per agent class) in the spec's
+    group order; valid where classes and groups coincide, as in every MPE
+    scenario: one class (spread), two (tag, adversary) or three
+    (world_comm: the leader, whose 20 actions set it apart, the other
+    adversaries and the good agents)."""
     fields = tuple(stacked_obs)
     if len(fields) != len(spec.groups):
         raise ValueError(f"env has {len(fields)} agent classes but spec has {len(spec.groups)} groups")

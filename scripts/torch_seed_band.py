@@ -6,16 +6,20 @@ golden (tests/test_torch_experiment.py, tests/test_torch_goldens.py).
 This script measures that spread on the CPU: the JAX run of one config of
 tests/test_pinned_goldens.py for seeds 0..N-1 and the port's run for the
 same seeds, printing min/max of loss_train and loss_test per package.
-``pursuit_batched_small`` and ``unroll_sticky_small`` are parity_small
-with the collection and unroll options of tests/test_torch_goldens.py
-set in both packages.
+``pursuit_batched_small``, ``unroll_sticky_small`` and
+``world_comm_small`` are parity_small with the collection, unroll and
+scenario options of tests/test_torch_goldens.py set in both packages.
+Besides min/max it prints each package's mean and standard error, and the
+gap of the means in standard errors of their difference.
 
     JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N] [--config parity_small|det_small|popart_small|
-        pursuit_batched_small|unroll_sticky_small]
+        pursuit_batched_small|unroll_sticky_small|world_comm_small]
 """
 
 import argparse
 import json
+import math
+import statistics
 import sys
 import tempfile
 
@@ -36,16 +40,19 @@ from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
 PORT_CONFIGS = {"parity_small": parity_small, **CONFIGS}
 # the options each derived config sets on parity_small, for the JAX side
 DERIVED = {
-    "pursuit_batched_small": {"collect_policy": "pursuit", "n_envs": 2},
-    "unroll_sticky_small": {"unroll_steps": 4, "collect_policy": "sticky", "collect_mix_frac": 0.9,
-                            "grad_clip": 10.0},
+    "pursuit_batched_small": {"train.collect_policy": "pursuit", "train.n_envs": 2},
+    "unroll_sticky_small": {"train.unroll_steps": 4, "train.collect_policy": "sticky",
+                            "train.collect_mix_frac": 0.9, "train.grad_clip": 10.0},
+    "world_comm_small": {"env.name": "MPE_simple_world_comm_v3", "env.num_adversaries": 4,
+                         "env.num_good_agents": 2, "env.num_obs": 1},
 }
 
 
 def jax_config(tmp: str, config: str, seed: int):
     cfg = golden_configs(tmp)["parity_small" if config in DERIVED else config]
-    for k, v in DERIVED.get(config, {}).items():
-        setattr(cfg.train, k, v)
+    for key, v in DERIVED.get(config, {}).items():
+        section, name = key.split(".")
+        setattr(getattr(cfg, section), name, v)
     cfg.train.seed = seed
     return cfg
 
@@ -59,11 +66,17 @@ def main(n: int, config: str) -> None:
             r = Experiment(PORT_CONFIGS[config](tmp, seed), device="cpu").setup().run()
             out["torch"].append({"loss_train": r["loss_train"], "loss_test": r["loss_test"]})
         print(seed, out["jax"][-1], out["torch"][-1], flush=True)
-    for pkg, runs in out.items():
-        for key in ("loss_train", "loss_test"):
+    for key in ("loss_train", "loss_test"):
+        stats = {}
+        for pkg, runs in out.items():
             vals = [r[key] for r in runs]
-            print(json.dumps({"config": config, "package": pkg, "metric": key,
-                              "min": min(vals), "max": max(vals)}))
+            stats[pkg] = (statistics.mean(vals), statistics.stdev(vals) / math.sqrt(len(vals)) if n > 1 else 0.0)
+            print(json.dumps({"config": config, "package": pkg, "metric": key, "min": min(vals),
+                              "max": max(vals), "mean": stats[pkg][0], "sem": stats[pkg][1]}))
+        gap = stats["torch"][0] - stats["jax"][0]
+        se = math.hypot(stats["torch"][1], stats["jax"][1])
+        print(json.dumps({"config": config, "metric": key, "n": n, "torch_minus_jax": gap,
+                          "in_standard_errors": gap / se if se else None}))
 
 
 if __name__ == "__main__":

@@ -98,7 +98,8 @@ def test_reset_ranges_and_make():
     assert get_space_size(env.action_space("adversary_0")) == 5
     assert isinstance(env.action_space("agent_0"), Discrete)
     assert get_space_size(Box(-1.0, 1.0, (2,))) == 2
-    with pytest.raises(NotImplementedError, match="M14"):
-        make("MPE_simple_spread_v3", device="cpu")
+    # every scenario of the JAX registry is made; tests/test_torch_scenarios.py holds them
+    spread = make("MPE_simple_spread_v3", device="cpu", num_good_agents=3)
+    assert spread.agents == ("agent_0", "agent_1", "agent_2")
     with pytest.raises(ValueError):
         make("nope", device="cpu")

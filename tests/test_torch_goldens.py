@@ -1,8 +1,9 @@
 """End to end on the CPU: the ``det_small`` and ``popart_small`` runs of
-tests/test_pinned_goldens.py in the PyTorch port, and two runs of this
-slice's paths on ``parity_small``: ``pursuit_batched_small`` (pursuit
-collection over 2 envs in lockstep) and ``unroll_sticky_small`` (sticky
-collection, 4-step unroll, clip 10).
+tests/test_pinned_goldens.py in the PyTorch port, and three runs of later
+paths on ``parity_small``: ``pursuit_batched_small`` (pursuit collection
+over 2 envs in lockstep), ``unroll_sticky_small`` (sticky collection,
+4-step unroll, clip 10) and ``world_comm_small`` (simple_world_comm's
+three agent groups).
 
 As with ``parity_small`` (tests/test_torch_experiment.py), the port's RNG
 is not JAX's, so each run is held to the JAX package's own spread over
@@ -23,6 +24,10 @@ run for seeds 0 to N-1 on the CPU (N = 8 unless stated) and gave
   [1.8748, 2.4523], and the port's seed 0 (1.5799) lay 0.006 below that
   range widened by half its width; the JAX seeds 8-15 reach 1.5105, so
   these two bands come from 16 seeds.
+- world_comm_small: loss_train in [1.1489, 1.6072] and loss_test in
+  [2.1948, 2.8834] (the port's: [0.8614, 1.3729] and [2.0709, 3.3859]).
+  Over seeds 0-31 the port's mean loss_train lay 0.051 (0.82 standard
+  errors) under JAX's and its mean loss_test 0.024 (0.24) over it.
 
 The port's seed-0 run must land inside the JAX range widened by half its
 width on each side.  Both routes run where the JAX package allows
@@ -43,6 +48,7 @@ BANDS = {
     "popart_small": ((0.21313495934009552, 0.28894540667533875), (0.3014877736568451, 0.4027957320213318)),
     "pursuit_batched_small": ((0.3140561580657959, 0.6149474382400513), (0.31299617886543274, 0.65189129114151)),
     "unroll_sticky_small": ((0.44665637612342834, 0.8159506916999817), (1.5105311870574951, 2.452324628829956)),
+    "world_comm_small": ((1.1488820314407349, 1.6071544885635376), (2.194760799407959, 2.8833723068237305)),
 }
 
 
@@ -70,6 +76,16 @@ def pursuit_batched_small(tmp, seed=0) -> ExperimentConfig:
     return cfg
 
 
+def world_comm_small(tmp, seed=0) -> ExperimentConfig:
+    """parity_small on simple_world_comm: the leader (Discrete(20)), three
+    adversaries and two good agents in three agent groups, one obstacle,
+    two food and two forests."""
+    cfg = parity_small(tmp, seed)
+    cfg.env.name = "MPE_simple_world_comm_v3"
+    cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs = 4, 2, 1
+    return cfg
+
+
 def unroll_sticky_small(tmp, seed=0) -> ExperimentConfig:
     """parity_small with the world-model control recipe's training: sticky
     collection (hold 0.9), 4-step unroll, global-norm clip 10
@@ -83,7 +99,8 @@ def unroll_sticky_small(tmp, seed=0) -> ExperimentConfig:
 
 
 CONFIGS = {"det_small": det_small, "popart_small": popart_small,
-           "pursuit_batched_small": pursuit_batched_small, "unroll_sticky_small": unroll_sticky_small}
+           "pursuit_batched_small": pursuit_batched_small, "unroll_sticky_small": unroll_sticky_small,
+           "world_comm_small": world_comm_small}
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

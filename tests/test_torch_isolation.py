@@ -30,5 +30,6 @@ def test_scan_sees_the_whole_package():
     for must in ("mfvae_tpu_torch/ops/fused_elbo.py", "mfvae_tpu_torch/training/trainer.py",
                  "mfvae_tpu_torch/training/popart.py", "mfvae_tpu_torch/envs/policies.py",
                  "mfvae_tpu_torch/training/unroll.py", "mfvae_tpu_torch/inference.py",
-                 "mfvae_tpu_torch/rollout_eval.py", "chip_smoke.py"):
+                 "mfvae_tpu_torch/rollout_eval.py", "mfvae_tpu_torch/planning.py",
+                 "mfvae_tpu_torch/envs/render.py", "chip_smoke.py"):
         assert must in names

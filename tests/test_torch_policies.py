@@ -78,7 +78,7 @@ def _states(n_env, seed, pop=POP, span=1.2):
 
 
 def _one(tstate, e):
-    return TState(*(x[e] for x in tstate))
+    return type(tstate)(*(x[e] for x in tstate))
 
 
 def test_tag_deltas_match_jax():
@@ -252,3 +252,85 @@ def test_pursuit_contact_share_in_the_jax_band():
     lo, hi = min(jax_pursuit), max(jax_pursuit)
     w = 0.5 * (hi - lo)
     assert lo - w <= port_pursuit <= hi + w, (port_pursuit, jax_pursuit)
+
+
+# ------------------------------------------------------- simple_adversary
+ADV_POP = dict(num_good_agents=3)
+
+
+def _adversary_states(seed):
+    """[6] injected simple_adversary states: random ones, then exact ties:
+    two good agents equidistant from the adversary, |dx| = |dy| in the
+    chase and in the goal-seek, and a good agent on the goal."""
+    from mfvae_tpu.envs.mpe import AdversaryState as JAdvState
+    from mfvae_tpu_torch.envs.mpe import AdversaryState as TAdvState
+
+    rng = np.random.default_rng(seed)
+    n = 6
+    pos = rng.uniform(-1, 1, (n, 4, 2)).astype(np.float32)
+    lm = rng.uniform(-0.9, 0.9, (n, 3, 2)).astype(np.float32)
+    goal = (np.arange(n) % 3).astype(np.int32)
+    pos[3] = [[0, 0], [0.3, 0.4], [0.4, -0.3], [0.9, 0.9]]  # goods 0 and 1 at distance 0.5
+    pos[4] = [[0.125, 0.125], [0.625, 0.625], [-0.75, 0.75], [0.875, -0.875]]  # chase along the diagonal
+    lm[4, goal[4]] = pos[4, 2] + [0.25, -0.25]  # seek along the other
+    pos[5, 3] = lm[5, goal[5]]  # on the goal: the no-op
+    vel = np.zeros_like(pos)
+    jstates = [JAdvState(jnp.asarray(pos[e]), jnp.asarray(vel[e]), jnp.asarray(lm[e]), jnp.int32(goal[e]), jnp.int32(0))
+               for e in range(n)]
+    tstate = TAdvState(torch.from_numpy(pos), torch.from_numpy(vel), torch.from_numpy(lm), torch.from_numpy(goal),
+                       torch.zeros(n, dtype=torch.int32))
+    return jstates, tstate
+
+
+def _adversary_pair(epsilon, name="pursuit", mix_frac=0.5):
+    from mfvae_tpu.envs.mpe import SimpleAdversaryEnv as JAdvEnv
+    from mfvae_tpu_torch.envs.mpe import SimpleAdversaryEnv as TAdvEnv
+
+    jenv, tenv = JAdvEnv(**ADV_POP), TAdvEnv(device="cpu", **ADV_POP)
+    jspec, tspec = j_build_spec(jenv), build_spec(tenv)
+    jsample, _ = j_make_action_sampler(jenv, jspec)
+    tsample, _ = make_action_sampler(tenv, tspec)
+    jp = jpol.make_collect_policy(jenv, jspec, name, epsilon, jsample, mix_frac=mix_frac)
+    tp = tpol.make_collect_policy(tenv, tspec, name, epsilon, tsample, mix_frac=mix_frac)
+    return jenv, tenv, jp, tp
+
+
+def test_adversary_deltas_and_pursuit_match_jax_exactly():
+    jenv, tenv, jp, tp = _adversary_pair(0.0)
+    jstates, tstate = _adversary_states(20)
+    deltas = tpol._adversary_deltas(tenv, tstate)
+    acts = tp(tstate, torch.Generator().manual_seed(0))
+    for e, js in enumerate(jstates):
+        np.testing.assert_array_equal(deltas[e].numpy(), np.asarray(jpol._adversary_deltas(jenv, js)))
+        want = np.asarray(jp(js, jax.random.PRNGKey(e)))
+        np.testing.assert_array_equal(acts[e].numpy(), want)
+        np.testing.assert_array_equal(tp(_one(tstate, e), torch.Generator().manual_seed(e)).numpy(), want)
+    # the ties: the first of two nearest prey; x wins |dx| = |dy|; on the goal, the no-op
+    assert deltas[3, 0].tolist() == pytest.approx([0.3, 0.4])
+    assert deltas[4, 0].tolist() == [0.5, 0.5] and deltas[4, 2].tolist() == [0.25, -0.25]
+    assert acts[4, 0] == 2 and acts[4, 2] == 2 and acts[5, 3] == 0
+
+
+def test_episode_mix_on_adversary_batched():
+    _, tenv, _, pursuit = _adversary_pair(0.0)
+    _, _, _, always = _adversary_pair(0.0, "episode_mix", mix_frac=1.0)
+    _, tstate = _adversary_states(21)
+    obs = tenv._observe(tstate)
+    carry, a = always.step(always.init_carry((6,)), obs, tstate, torch.Generator().manual_seed(0))
+    torch.testing.assert_close(a, pursuit(tstate, None), rtol=0, atol=0)
+    assert [tuple(x.shape) for x in carry] == [(6,), (6,)] and bool(carry[1].all())
+
+
+@pytest.mark.parametrize("name", ["pursuit", "episode_mix"])
+@pytest.mark.parametrize("env_name", ["MPE_simple_spread_v3", "MPE_simple_world_comm_v3"])
+def test_pursuit_refused_where_jax_refuses(name, env_name):
+    from mfvae_tpu.envs.mpe import make as j_make
+    from mfvae_tpu_torch.envs.mpe import make as t_make
+
+    jenv, tenv = j_make(env_name), t_make(env_name, device="cpu")
+    jspec, tspec = j_build_spec(jenv), build_spec(tenv)
+    with pytest.raises(ValueError, match="not defined for") as want:
+        jpol.make_collect_policy(jenv, jspec, name, 0.1, j_make_action_sampler(jenv, jspec)[0])
+    with pytest.raises(ValueError, match="not defined for") as got:
+        tpol.make_collect_policy(tenv, tspec, name, 0.1, make_action_sampler(tenv, tspec)[0])
+    assert str(got.value) == str(want.value)
