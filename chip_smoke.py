@@ -90,9 +90,24 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    Every return finite; true-dynamics MPC beats random on simple_tag; an
    [E]-batched call of each true-dynamics actor equals E per-episode calls
    with the same draws.
-19. The kernel list as one JSON line, the card, and the result line.
+19. Behavior learned in imagination: examples/behavior_policy.yaml at full
+   width (40 agents, det_features 128, unfused decoders, sticky 0.9,
+   unroll 8) trained on plain ops for 2 epochs; then train_behavior for 10
+   updates each of distill (the recipe's 32 starts x (1 + 3 visited) x 24
+   rollouts x 5 actions, horizon 8), reinforce and actor_critic (256
+   starts x 16 rollouts): finite metrics, no kernel launch, ms per update
+   (CUDA events, median of 6 more updates), the device time of one distill
+   update (torch.profiler); save_policy -> load_policy with equal weights
+   and actions; the adversary return of the sampled policy and of random
+   actions over 32 episodes of 128 steps; one epoch collecting with
+   imagination:<the saved policy>; a continuous actor_critic on
+   examples/continuous_tag.yaml whose policy grads are finite and nonzero
+   while the world model's grads stay as training left them; one update of each trainer on a
+   tiny float32 model, card against CPU at the CPU tests' tolerances; the
+   phase's peak device memory.
+20. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-17 print their epoch walls, launches and losses.
+Phases 4-19 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -117,6 +132,260 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def _to(x, dev):
+    """Tensors, lists and (named) tuples of them, on ``dev``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, list):
+        return [_to(v, dev) for v in x]
+    if isinstance(x, tuple):
+        moved = [_to(v, dev) for v in x]
+        return type(x)(*moved) if hasattr(x, "_fields") else tuple(moved)
+    return x
+
+
+def imagination_card_vs_cpu(dev) -> dict:
+    """One update of each imagination trainer on a tiny float32 simple_tag
+    world model (2 adversaries, 1 good agent, 1 obstacle), on the card and
+    on the CPU from the same weights, starts and draws (drawn on the CPU):
+    the tolerances the CPU tests hold the port to JAX with, params after
+    the Adam step within rtol 1e-5 / atol 1e-7 and the continuous
+    actor-critic's grads within rtol 1e-4 (atol 1e-4 of the leaf's
+    largest).  Returns the largest param difference of each case."""
+    import torch
+
+    from mfvae_tpu_torch import imagination as imag
+    from mfvae_tpu_torch.config import ModelConfig
+    from mfvae_tpu_torch.envs.mpe import make
+    from mfvae_tpu_torch.inference import WorldModel
+    from mfvae_tpu_torch.models.mavae import MAVAE
+    from mfvae_tpu_torch.training.experiment import build_spec
+
+    plan, h, s, n = (0, 1), 4, 3, 2
+
+    def world(device, discrete):
+        env = make("MPE_simple_tag_v3", device=device, num_good_agents=1, num_adversaries=2, num_obs=1,
+                   max_steps=16, discrete_actions=discrete)
+        spec = build_spec(env)
+        cfg = ModelConfig(discrete_act=discrete, idx_features=8, obs_features=8, action_features=8,
+                          encoder_hidden=(16,), decoder_hidden=(32,), compute_dtype="float32")
+        model = MAVAE.from_config(cfg, spec, device="cpu", generator=torch.Generator().manual_seed(0))
+        return env, spec, WorldModel(model.to(device))
+
+    def trainer(kind, wm, env, spec):
+        """(init_fn, update_fn)"""
+        kw = dict(horizon=h, hidden=(16,), learning_rate=1e-3)
+        if kind == "reinforce":
+            return imag.make_imagination_trainer(wm, env, spec, plan, n_rollouts=n, **kw)
+        if kind.startswith("actor_critic"):
+            ema = 0.1 if "target_ema" in kind else 0.0
+            return imag.make_actor_critic_trainer(wm, env, spec, plan, n_rollouts=n, target_ema=ema, **kw)
+        return imag.make_distillation_trainer(wm, env, spec, plan, visit_steps=2, teacher_mode="enumerated",
+                                              m_rollouts=3, **kw)
+
+    def modules(params):
+        return params if isinstance(params, dict) else {"pi": params}
+
+    worst = {}
+    for kind, discrete in (("reinforce", True), ("actor_critic target_ema", True), ("distill enumerated", True),
+                           ("actor_critic continuous", False)):
+        g = torch.Generator().manual_seed(1)
+        env, spec, wm = world("cpu", discrete)
+        obs = tuple(torch.randn(s, len(i), od, generator=g) for (od, _), i in spec.groups)
+        if kind.startswith("distill"):
+            noise = imag.DistillNoise(
+                imag.ImaginationRollout(wm, env, spec, plan, 2).draw_noise(g, s),
+                imag.EnumeratedTeacher(wm, env, spec, plan, horizon=h, m_rollouts=3).draw_noise(g, 3 * s))
+        else:
+            noise = imag.ImaginationRollout(wm, env, spec, plan, h).draw_noise(g, s * n)
+        after, init = {}, None
+        for device in ("cpu", dev):
+            env_d, spec_d, wm_d = (env, spec, wm) if init is None else world(device, discrete)
+            init_fn, update_fn = trainer(kind, wm_d, env_d, spec_d)
+            params, opt = init_fn(torch.Generator(device=device).manual_seed(2))
+            if init is None:
+                init = {k: {name: v.clone() for name, v in m.state_dict().items()} for k, m in modules(params).items()}
+            else:
+                for k, m in modules(params).items():
+                    m.load_state_dict(init[k])
+            update_fn(params, opt, _to(obs, device), noise=_to(noise, device))
+            after[device] = modules(params)
+            check(all(p.grad is None for p in wm_d.model.parameters()), f"{kind}: the world model took a grad")
+        worst[kind] = 0.0
+        for k, m in after["cpu"].items():
+            for (name, p), q in zip(m.named_parameters(), after[dev][k].parameters()):
+                q_cpu = q.detach().cpu()
+                worst[kind] = max(worst[kind], float((q_cpu - p.detach()).abs().max()))
+                check(torch.allclose(q_cpu, p.detach(), rtol=1e-5, atol=1e-7),
+                      f"{kind}: {k}.{name} after the update differs between the card and the CPU")
+                if not discrete and p.grad is not None:
+                    gc = p.grad
+                    check(torch.allclose(q.grad.cpu(), gc, rtol=1e-4, atol=1e-4 * float(gc.abs().max())),
+                          f"{kind}: {k}.{name} grad differs between the card and the CPU")
+    return worst
+
+
+def behavior_phase(drive, examples: Path, tmp: str, dev) -> dict:
+    """Phase 19: behavior learned in imagination at the recipe's widths.
+    ``drive(cfg, use_pallas, epochs, tmp, phase, label)`` trains a world
+    model as phases 4-18 do.  Returns the phase's numbers."""
+    import torch
+
+    from mfvae_tpu_torch import behavior
+    from mfvae_tpu_torch.config import BehaviorConfig, load_config
+    from mfvae_tpu_torch.imagination import make_policy_actor
+    from mfvae_tpu_torch.inference import WorldModel
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    recipe = str(examples / "behavior_policy.yaml")
+    exp, wall, _ = drive(load_config(recipe, []), False, 2, f"{tmp}/behavior", "19", "behavior_policy")
+    c, m, b = exp.cfg, exp.cfg.model, exp.cfg.behavior
+    check(exp.spec.n_agents == 40 and m.det_features == 128 and not m.fused_decoders
+          and c.train.unroll_steps == 8 and c.train.collect_policy == "sticky" and c.train.collect_mix_frac == 0.9
+          and (b.n_starts, b.m_rollouts, b.horizon, b.visit_steps) == (32, 24, 8, 3),
+          "behavior_policy.yaml is not the configuration this phase names")
+    out = {"world_model_epoch_wall_ms": wall}
+
+    def timed_updates(exp, n):
+        """n updates of exp.cfg.behavior's algorithm through a fresh
+        WorldModel: (median ms per update by CUDA events, all ms, wm,
+        params, update closure for one more)."""
+        wm = WorldModel(exp.carry.train_state.model)
+        plan = behavior.resolve_plan_agents(exp, exp.cfg.behavior)
+        init_fn, update_fn = behavior.make_behavior_trainer(exp, wm, plan)
+        g = torch.Generator(device=dev).manual_seed(19)
+        pool = behavior.collect_start_states(exp, exp.cfg.behavior, g)
+        params, opt = init_fn(g)
+        k = min(exp.cfg.behavior.n_starts, exp.cfg.behavior.start_pool)
+
+        def one():
+            rows = torch.randperm(pool[0].shape[0], generator=g, device=dev)[:k]
+            return update_fn(params, opt, tuple(o[rows] for o in pool), g)
+
+        times = []
+        for _ in range(n):
+            if on_card:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = one()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                metrics = one()
+                times.append(1e3 * (time.perf_counter() - t0))
+            check(all(math.isfinite(float(v)) for v in metrics.values()), f"non-finite update metrics {metrics}")
+        return statistics.median(times), times, wm, params, one
+
+    results, out["launches"] = {}, {}
+    for algo in ("distill", "reinforce", "actor_critic"):
+        b.algo = algo
+        b.updates = 10
+        if algo != "distill":  # the config defaults, not the distill recipe's 32 starts
+            b.n_starts = BehaviorConfig().n_starts
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = behavior.train_behavior(exp)
+        wall_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        check(not any(launches.values()), f"behavior {algo} launched kernels: {launches}")
+        out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in launches.items()}
+        final = result.curve[-1]
+        check(all(math.isfinite(v) for row in result.curve for v in row.values()), f"{algo}: non-finite {final}")
+        ms, times, _, _, one = timed_updates(exp, 6)
+        out[algo] = {"ms_per_update": ms, "ms_all": [round(x, 3) for x in times], "train_behavior_s": wall_s,
+                     "n_starts": b.n_starts, "final": final}
+        print(f"[19] {algo}: 10 updates through train_behavior in {wall_s:.2f} s, final {json.dumps(final)}; "
+              f"ms per update {ms:.3f} (median of 6, CUDA events; all {out[algo]['ms_all']}); "
+              f"launches {launches}", flush=True)
+        if algo == "distill" and on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                one()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)]
+            check(bool(rows), "torch.profiler recorded no device time for a distill update")
+            out[algo]["device_busy_ms"] = sum(e.self_device_time_total for e in rows) / 1e3
+            out[algo]["device_kernels"] = sum(e.count for e in rows)
+            top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+            out[algo]["top_kernels_ms"] = [(e.key[:80], e.count, e.self_device_time_total / 1e3) for e in top]
+            print(f"[19] distill: one update keeps the device busy {out[algo]['device_busy_ms']:.3f} ms "
+                  f"in {out[algo]['device_kernels']} kernels (torch.profiler); the largest (name, calls, ms): "
+                  f"{json.dumps(out[algo]['top_kernels_ms'])}", flush=True)
+        results[algo] = result
+
+    # save -> load -> the served actor acts alike under the same draws
+    result = results["distill"]
+    b.algo = "distill"
+    path = f"{tmp}/behavior/policy.pt"
+    obs_dim = exp.spec.obs_dims[0]
+    behavior.save_policy(path, result, b, obs_dim=obs_dim, act_dim=exp.spec.act_dims[0])
+    policy, meta = behavior.load_policy(path, device=dev)
+    same = all(torch.equal(policy.state_dict()[k], v) for k, v in result.policy.state_dict().items())
+    check(same and meta["plan_agents"] == list(result.plan_agents), "the loaded policy differs from the saved one")
+    obs, _ = exp.env.reset_stacked(torch.Generator(device=dev).manual_seed(20), batch_shape=(8,))
+    for greedy in (True, False):
+        a = make_policy_actor(result.policy, exp.env, exp.spec, result.plan_agents, greedy)
+        z = make_policy_actor(policy, exp.env, exp.spec, result.plan_agents, greedy)
+        noise = a.draw_noise(torch.Generator(device=dev).manual_seed(21), (8,))
+        check(torch.equal(a(obs, noise=noise), z(obs, noise=noise)), f"greedy={greedy}: loaded policy acts otherwise")
+    print(f"[19] save_policy -> load_policy: weights and actions (greedy and sampled, 8 envs) equal; "
+          f"sidecar {json.dumps(meta)}", flush=True)
+
+    # real-env return, policy against random, on the same 32 episodes
+    t0 = time.perf_counter()
+    out["returns"] = behavior.eval_returns(exp, result, 32, 128)
+    check(all(math.isfinite(v) for v in out["returns"].values()), f"non-finite returns {out['returns']}")
+    print(f"[19] adversary return over 32 episodes of 128 steps ({time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps(out['returns'])}", flush=True)
+    del exp, results, result
+
+    # the Dreamer loop's collection leg: one epoch with the saved policy
+    cfg = load_config(recipe, [f"train.collect_policy=imagination:{path}"])
+    exp, out["imagination_collect_epoch_wall_ms"], _ = drive(cfg, False, 1, f"{tmp}/imag_collect", "19",
+                                                             "behavior_policy, imagination: collection")
+    prev, fresh = exp.carry.env.policy
+    check(tuple(prev.shape) == (exp.spec.n_agents,) and fresh.dtype == torch.bool, "no imagination policy carry")
+    del exp
+
+    # continuous actions: the critic's grads reach the policy through the world model
+    cfg = load_config(str(examples / "continuous_tag.yaml"), ["behavior.algo=actor_critic"])
+    exp, _, _ = drive(cfg, False, 1, f"{tmp}/continuous", "19", "continuous_tag")
+    wm_grads = [None if p.grad is None else p.grad.clone() for p in exp.carry.train_state.model.parameters()]
+    ms, times, wm, params, _ = timed_updates(exp, 5)
+    grads = [p.grad for p in params["pi"].parameters()]
+    check(all(gr is not None and bool(torch.isfinite(gr).all()) for gr in grads), "continuous: policy grad missing")
+    norm = float(sum(gr.abs().sum() for gr in grads))
+    check(norm > 0 and math.isfinite(norm), f"continuous: policy grad sum {norm}")
+    check(all((p.grad is None) if g0 is None else torch.equal(p.grad, g0)
+              for p, g0 in zip(wm.model.parameters(), wm_grads)),
+          "continuous: the behavior updates moved the world model's grads")
+    out["actor_critic continuous"] = {"ms_per_update": ms, "ms_all": [round(x, 3) for x in times],
+                                      "policy_grad_abs_sum": norm}
+    print(f"[19] continuous actor_critic: ms per update {ms:.3f} (median of 5), policy grad |sum| {norm:.6g}, "
+          f"the world model's grads untouched", flush=True)
+    del exp, wm, params
+
+    out["card_vs_cpu_max_abs_diff"] = imagination_card_vs_cpu(dev)
+    print(f"[19] one update of each trainer, card against CPU (tiny float32 model, the same draws): "
+          f"largest param difference {json.dumps(out['card_vs_cpu_max_abs_diff'])}", flush=True)
+    if on_card:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[19] behavior summary: {json.dumps(out)}")
+    print(f"[19] phase wall {out['phase_wall_s']:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -733,7 +1002,11 @@ def main() -> None:
         print(f"[18] phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
         del control_exp, control_wm
 
-    # ------------------------------------------------------ 19. the kernel list
+        # ------------------------------------------- 19. behavior in imagination
+        behavior_out = behavior_phase(drive, examples, tmp, dev)
+        path_launches["behavior: train_behavior x3"] = behavior_out["launches"]
+
+    # ------------------------------------------------------ 20. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -751,11 +1024,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[19] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[20] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[19] per-epoch wall ms, {label}: {w}")
-    print(f"[19] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[20] per-epoch wall ms, {label}: {w}")
+    print(f"[20] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@ import sys
 from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides, load_config
 
 
-def parse_args(argv):
-    """-> (ExperimentConfig, device)."""
+def split_args(argv):
+    """-> (config path or None, dotted overrides, device)."""
     cfg_path = None
     overrides = []
     device = "cuda"
@@ -30,6 +30,12 @@ def parse_args(argv):
             cfg_path = a
         else:
             raise SystemExit(f"unrecognized argument {a!r}")
+    return cfg_path, overrides, device
+
+
+def parse_args(argv):
+    """-> (ExperimentConfig, device)."""
+    cfg_path, overrides, device = split_args(argv)
     cfg = load_config(cfg_path) if cfg_path else ExperimentConfig()
     if overrides:
         apply_overrides(cfg, overrides)

@@ -15,6 +15,8 @@ host.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from mfvae_tpu_torch.envs.mpe import SimpleAdversaryEnv, SimpleTagEnv
@@ -84,16 +86,71 @@ def host_pursuit_actions(*args, **kwargs):
     )
 
 
-class ImaginationCollectPolicy:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "collect_policy='imagination:...' is not ported to the PyTorch "
-            "package yet (ROADMAP M15)"
-        )
-
-
 def _leading(state) -> tuple:
     return tuple(state.step.shape)
+
+
+class CollectNoise(NamedTuple):
+    """The draws of one ``ImaginationCollectPolicy`` step over leading axes L."""
+
+    rand: torch.Tensor  # [*L, A(, d)] the sampler's uniform actions (epsilon mixture)
+    eps: torch.Tensor  # [*L, A] uniforms, < epsilon -> the uniform action
+    hold: torch.Tensor  # [*L, A] uniforms, < hold -> the previous action
+    actor: object  # the policy actor's ActorNoise
+
+
+class ImaginationCollectPolicy:
+    """Collection with a saved imagination policy (``behavior.save_policy``
+    as the port writes it): its plan agents act from the policy's sampled
+    distribution, every agent takes a uniform action with probability
+    ``epsilon`` and keeps its previous action with probability ``hold``
+    (the collect_mix_frac knob, as sticky reuses it; never at an episode's
+    first step).  Collecting with the learned behavior and retraining the
+    world model closes the Dreamer iteration.
+
+    carry = (prev_actions, fresh), reset at episode end.  ``step`` takes an
+    explicit ``CollectNoise`` or draws one, the sampler's actions first."""
+
+    def __init__(self, env, spec, path: str, epsilon: float, sample_fn, hold: float = 0.0):
+        from mfvae_tpu_torch.behavior import load_policy  # it imports this module
+        from mfvae_tpu_torch.imagination import make_policy_actor
+
+        policy, meta = load_policy(path, device=env.device)
+        self._actor = make_policy_actor(
+            policy, env, spec, tuple(meta["plan_agents"]), greedy=False,
+            centralized=bool(meta.get("centralized", False)),
+        )
+        self.epsilon = float(epsilon)
+        self.hold = float(hold)
+        self.n_agents = spec.n_agents
+        self.discrete = getattr(env, "discrete_actions", True)
+        self.act_shape = () if self.discrete else (spec.act_dims[0],)
+        self.sample_fn = sample_fn
+        self.device = env.device
+
+    def init_carry(self, leading=()):
+        dtype = torch.int32 if self.discrete else torch.float32
+        prev = torch.zeros(tuple(leading) + (self.n_agents,) + self.act_shape, dtype=dtype, device=self.device)
+        return (prev, torch.ones(leading, dtype=torch.bool, device=self.device))
+
+    def draw_noise(self, generator, lead=()) -> CollectNoise:
+        rand = self.sample_fn(generator, lead)
+        eps = torch.rand(lead + (self.n_agents,), generator=generator, device=self.device)
+        hold = torch.rand(lead + (self.n_agents,), generator=generator, device=self.device)
+        return CollectNoise(rand, eps, hold, self._actor.draw_noise(generator, lead))
+
+    def step(self, carry, stacked_obs, env_state, generator, noise: Optional[CollectNoise] = None):
+        prev, fresh = carry
+        if noise is None:
+            noise = self.draw_noise(generator, _leading(env_state))
+        act = self._actor(stacked_obs, noise=noise.actor)
+        if self.epsilon > 0.0:
+            override = noise.eps < self.epsilon
+            act = torch.where(override if self.discrete else override[..., None], noise.rand, act)
+        if self.hold > 0.0:
+            keep = (noise.hold < self.hold) & ~fresh[..., None]
+            act = torch.where(keep if self.discrete else keep[..., None], prev, act)
+        return (act, torch.zeros_like(fresh)), act
 
 
 class EpisodeMixPolicy:
@@ -178,6 +235,9 @@ def make_collect_policy(env, spec, name: str, epsilon: float, sample_fn, mix_fra
     - ``'episode_mix'``: ``EpisodeMixPolicy`` over pursuit and the sampler.
     - ``'sticky'``: ``StickyRandomPolicy`` with hold probability
       ``mix_frac``.
+    - ``'imagination:<path>'``: ``ImaginationCollectPolicy`` over the
+      policy file the port's ``behavior.save_policy`` wrote, with hold
+      probability ``mix_frac``.
 
     ``sample_fn(generator, leading)`` is the trainer's uniform sampler
     (``make_action_sampler``), so the mixture keeps the env's own action

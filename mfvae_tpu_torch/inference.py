@@ -13,6 +13,15 @@ under ``torch.no_grad()`` on the model's device:
   agent (``state_to_grouped``) and fed back.
 
 Inputs are ``GroupedBatch``es, or the reference's per-agent dicts.
+
+Imagination (``imagination.py``) is built on ``_predict`` and
+``_state_to_grouped``, as in the JAX package, so stub world models plug in.
+``_predict`` is ``mean_call`` with autograd on, over the model's parameters
+detached: as JAX's ``_predict`` closes over ``variables``, gradients reach
+its inputs (continuous actions, the imagined obs fed back) and never the
+world model.  Every query reads the one model it was given, with no copy,
+so ``predict`` and ``_predict`` agree however far that model trains on
+(the JAX ``WorldModel`` holds a snapshot of ``variables`` instead).
 """
 
 from __future__ import annotations
@@ -20,9 +29,21 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from mfvae_tpu_torch.config import ModelConfig
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch, state_to_grouped, zero_actions_grouped
+
+
+class _MeanCall(nn.Module):
+    """``model.mean_call`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model: MAVAE):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: GroupedBatch):
+        return self.model.mean_call(batch)
 
 
 class WorldModel:
@@ -30,6 +51,7 @@ class WorldModel:
         self.model = model
         self.spec = model.spec
         self.device = next(model.parameters()).device
+        self._mean = _MeanCall(model)
 
     # ------------------------------------------------------------------ api
     @torch.no_grad()
@@ -55,6 +77,15 @@ class WorldModel:
         """Per-agent latents (mu, logvar), each [B, A, F] in grouped order."""
         mu, logvar, *_ = self.model.encode(self._as_batch(obs, actions))
         return mu.to(torch.float32), logvar.to(torch.float32)
+
+    def _predict(self, batch: GroupedBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Posterior-mean step differentiable in ``batch`` only, through
+        the parameters detached: (next state [B, Σobs], rewards [B, A])."""
+        params = {name: p.detach() for name, p in self._mean.named_parameters()}
+        return torch.func.functional_call(self._mean, params, (batch,))
+
+    def _state_to_grouped(self, state: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return state_to_grouped(self.spec, state)
 
     def rollout(self, obs, action_plan) -> Tuple[torch.Tensor, torch.Tensor]:
         """Imagine a T-step trajectory from ``obs`` under ``action_plan``:

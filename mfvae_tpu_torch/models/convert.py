@@ -19,6 +19,7 @@ import torch
 
 _LIST_MODULE = re.compile(r"^(encoders|action_encoders|action_delta_head)_(\d+)$")
 _LIST_NAME = {"action_delta_head": "action_delta_heads"}
+_POLICY_MODULE = re.compile(r"^(Dense|LayerNorm)_(\d+)$")
 
 
 def _flatten(tree: Dict[str, Any], prefix=()):
@@ -40,4 +41,18 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             m = _LIST_MODULE.match(p)
             parts.extend([_LIST_NAME.get(m.group(1), m.group(1)), m.group(2)] if m else [p])
         out[".".join(parts)] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return out
+
+
+def policy_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX imagination network's tree -> its state_dict in the port."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, leaf in _flatten(tree):
+        m = _POLICY_MODULE.match(path[0])
+        if m is None or len(path) != 2 or (m.group(1) == "LayerNorm" and m.group(2) != "0"):
+            raise ValueError(f"not an imagination network leaf: {'/'.join(path)}")
+        name = "norm" if m.group(1) == "LayerNorm" else f"dense.{m.group(2)}"
+        out[f"{name}.{path[1]}"] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return out

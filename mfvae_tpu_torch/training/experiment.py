@@ -7,10 +7,15 @@
 The device is a constructor argument, not a config field, so the config
 tree stays field-for-field equal to the JAX package's.  Without a card,
 ``device="cuda"`` raises rather than carrying on on the CPU.
+
+``run`` checkpoints and returns at the next epoch boundary after SIGTERM or
+SIGINT; ``run_resilient`` rebuilds and resumes after a failure.
 """
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
 from typing import Optional
 
@@ -69,9 +74,11 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
                 f"{name} is not ported to the PyTorch package yet (ROADMAP {item})"
             )
     # model.rng_mode=reference and model.remat are refused where they are
-    # used (MAVAE), the vdn: and imagination: collect policies where the
-    # policy is resolved (trainer, envs/policies.py); fused_epoch, epochs_per_dispatch and eval_vmap shape
-    # only the JAX package's XLA program and change nothing
+    # used (MAVAE), the vdn: collect policies where the policy is resolved
+    # (trainer.py).  fused_epoch, epochs_per_dispatch and eval_vmap shape
+    # only the JAX package's XLA program and change nothing here, except
+    # that setup refuses epochs_per_dispatch > 1 without the fused epoch,
+    # as the JAX package does
 
 
 class Experiment:
@@ -109,6 +116,12 @@ class Experiment:
     # ------------------------------------------------------------ lifecycle
     def setup(self):
         cfg = self.cfg
+        if cfg.train.n_envs <= 1 and not cfg.train.fused_epoch and cfg.train.epochs_per_dispatch > 1:
+            raise ValueError(
+                "train.epochs_per_dispatch > 1 requires the fused epoch "
+                "program (train.fused_epoch=true or train.n_envs > 1); "
+                "the split-phase path dispatches per phase"
+            )
         if cfg.model.reward_head_mode == "twohot":
             # PopArt rescales a scalar output head and K3 scores scalar
             # huber: neither is defined for categorical reward logits
@@ -237,7 +250,13 @@ class Experiment:
         """Train ``train.epoch_num`` epochs.  Returns the last epoch's
         ``loss_train``/``loss_test``, the total ``wall_s`` and the wall
         seconds of each epoch (``epoch_wall_s``, each ending in a device
-        sync when the epoch's losses are read)."""
+        sync when the epoch's losses are read).
+
+        Preemption: on the main thread, SIGTERM and SIGINT only set a flag
+        for the run; at the next epoch boundary the full payload is saved
+        and the run returns with ``preempted_at`` (the last epoch trained),
+        so a restart with ``train.resume`` continues exactly.  The previous
+        handlers are restored on the way out."""
         if self.carry is None:
             self.setup()
         cfg = self.cfg
@@ -245,23 +264,37 @@ class Experiment:
         last: dict = {}
         epoch_wall = []
         epoch = self.start_epoch - 1
-        for epoch in range(self.start_epoch, cfg.train.epoch_num):
-            t_epoch = time.perf_counter()
-            self.carry, metrics = self._epoch_fn(self.carry)
-            train = type(metrics.train)(*(float(x) for x in metrics.train))
-            test = type(metrics.test)(*(float(x) for x in metrics.test))
-            epoch_wall.append(time.perf_counter() - t_epoch)
-            self.logger.losses(train, epoch, "Train")
-            self.logger.losses(test, epoch, "Test")
-            last = {"epoch": epoch, "loss_train": train.loss, "loss_test": test.loss}
-            if cfg.train.checkpoint_every and (epoch + 1) % cfg.train.checkpoint_every == 0:
-                self._save(epoch)
+        preempted = []
+        old_handlers = {}
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[sig] = signal.signal(sig, lambda signum, frame: preempted.append(signum))
+        try:
+            for epoch in range(self.start_epoch, cfg.train.epoch_num):
+                t_epoch = time.perf_counter()
+                self.carry, metrics = self._epoch_fn(self.carry)
+                train = type(metrics.train)(*(float(x) for x in metrics.train))
+                test = type(metrics.test)(*(float(x) for x in metrics.test))
+                epoch_wall.append(time.perf_counter() - t_epoch)
+                self.logger.losses(train, epoch, "Train")
+                self.logger.losses(test, epoch, "Test")
+                last = {"epoch": epoch, "loss_train": train.loss, "loss_test": test.loss}
+                if cfg.train.checkpoint_every and (epoch + 1) % cfg.train.checkpoint_every == 0:
+                    self._save(epoch)
+                if preempted:
+                    print(f"preempted: checkpointing epoch {epoch}, exiting cleanly", flush=True)
+                    break
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
         if epoch >= 0 and self.ckpt.latest_step() != epoch:
             self._save(epoch)
         self.ckpt.wait()
         self.logger.flush()
         last["wall_s"] = time.time() - t0
         last["epoch_wall_s"] = epoch_wall
+        if preempted:
+            last["preempted_at"] = epoch
         return last
 
 
@@ -269,3 +302,23 @@ def run_experiment(cfg: ExperimentConfig, device="cuda") -> dict:
     """The JAX package's dispatcher; only the on-device backend is ported
     (env.backend='host' is refused, ROADMAP M18)."""
     return Experiment(cfg, device).setup().run()
+
+
+def run_resilient(cfg: ExperimentConfig, max_restarts: int = 3, experiment_factory=Experiment,
+                  device="cuda") -> dict:
+    """Failure-tolerant training: on any exception the experiment is rebuilt
+    with ``train.resume`` set and continues from its latest full-state
+    checkpoint, up to ``max_restarts`` times.  Progress across restarts
+    needs ``train.checkpoint_every`` > 0 and a ``train.checkpoint_dir``."""
+    attempt = 0
+    while True:
+        try:
+            if attempt > 0:
+                cfg.train.resume = True
+            return experiment_factory(cfg, device).setup().run()
+        except Exception as e:  # noqa: BLE001 - every failure of an attempt is retried
+            attempt += 1
+            if attempt > max_restarts:
+                raise
+            print(f"training attempt {attempt} failed ({type(e).__name__}: {e}); "
+                  "restarting from last checkpoint", flush=True)

@@ -131,7 +131,7 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [
     ("env.backend=host", "M18"), ("train.collect_policy=vdn:x.npz", "M16"),
-    ("train.collect_policy=imagination:x.msgpack", "M15"), ("train.n_envs=2 mesh.enable=true", "M17"),
+    ("model.rng_mode=reference", "M20"), ("train.n_envs=2 mesh.enable=true", "M17"),
     ("mesh.enable=true", "M17"), ("train.debug_nans=true", "M20"),
     ("train.bug_compat_rng=true", "M20"), ("train.profile_epochs=1", "M20"),
     ("model.remat=true", "M20"),
@@ -143,6 +143,22 @@ def test_unported_options_refused(tmp_path, override, item):
     cfg.train.checkpoint_dir = ""
     with pytest.raises(NotImplementedError, match=item):
         Experiment(cfg, device).setup()
+
+
+@pytest.mark.parametrize("fused_epoch,n_envs,refused", [(False, 1, True), (True, 1, False), (False, 2, False)])
+def test_epochs_per_dispatch_needs_the_fused_epoch(tmp_path, fused_epoch, n_envs, refused):
+    """As in the JAX package's setup: epochs_per_dispatch > 1 on the
+    split-phase path (fused_epoch false, one env) is refused."""
+    cfg = parity_small(tmp_path)
+    cfg.train.epochs_per_dispatch = 2
+    cfg.train.fused_epoch = fused_epoch
+    cfg.train.n_envs = n_envs
+    exp = Experiment(cfg, device="cpu")
+    if refused:
+        with pytest.raises(ValueError, match="requires the fused epoch program"):
+            exp.setup()
+    else:
+        assert exp.setup().carry is not None
 
 
 def test_parse_args():

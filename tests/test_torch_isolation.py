@@ -31,5 +31,6 @@ def test_scan_sees_the_whole_package():
                  "mfvae_tpu_torch/training/popart.py", "mfvae_tpu_torch/envs/policies.py",
                  "mfvae_tpu_torch/training/unroll.py", "mfvae_tpu_torch/inference.py",
                  "mfvae_tpu_torch/rollout_eval.py", "mfvae_tpu_torch/planning.py",
-                 "mfvae_tpu_torch/envs/render.py", "chip_smoke.py"):
+                 "mfvae_tpu_torch/envs/render.py", "mfvae_tpu_torch/imagination.py",
+                 "mfvae_tpu_torch/behavior.py", "chip_smoke.py"):
         assert must in names

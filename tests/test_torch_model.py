@@ -112,3 +112,55 @@ def test_unported_options_refused(field, value):
     with pytest.raises(NotImplementedError, match="M20"):
         MAVAE.from_config(cfg, spec, device="cpu")
 
+
+
+# ------------------------------------------------------------- bf16 forward
+BF16_AGENTS = tuple(f"adversary_{i}" for i in range(6)) + tuple(f"agent_{i}" for i in range(3))
+BF16_OBS = {a: (10 if a.startswith("adversary") else 8) for a in BF16_AGENTS}
+BF16_CASES = {
+    "fused decoders": dict(fused_decoders=True),
+    "unfused decoders": dict(fused_decoders=False),
+    "det+residual+skip+layernorm": dict(fused_decoders=False, det_features=8, residual_state=True,
+                                        state_skip=True, decoder_layernorm=True),
+}
+
+
+def _bf16_pairs(case, port_dtype):
+    """(port, JAX) outputs of the plain, fused and mean calls: JAX in
+    bfloat16, the port in ``port_dtype``, on bridged params and JAX's eps."""
+    acts = {a: 5 for a in BF16_AGENTS}
+    jspec, tspec = JSpec.from_dicts(BF16_AGENTS, BF16_OBS, acts), AgentSpec.from_dicts(BF16_AGENTS, BF16_OBS, acts)
+    kw = dict(SMALL, compute_dtype="bfloat16", **BF16_CASES[case])
+    jmodel = JMAVAE.from_config(JModelConfig(**kw), jspec)
+    tmodel = MAVAE.from_config(ModelConfig(**dict(kw, compute_dtype=port_dtype)), tspec, device="cpu")
+    rng = np.random.default_rng(3)
+    b = 64
+    obs_np = [rng.normal(size=(b, len(idxs), od)).astype(np.float32) for (od, _), idxs in jspec.groups]
+    act_np = [rng.integers(0, 5, size=(b, len(idxs))).astype(np.int32) for _, idxs in jspec.groups]
+    jbatch = JBatch(obs=tuple(map(jnp.asarray, obs_np)), actions=tuple(map(jnp.asarray, act_np)))
+    tbatch = GroupedBatch(obs=tuple(map(torch.from_numpy, obs_np)), actions=tuple(map(torch.from_numpy, act_np)))
+    variables = jmodel.init(jax.random.PRNGKey(4), jbatch, None, jax.random.PRNGKey(5))
+    tmodel.load_state_dict(params_from_jax(jax.device_get(variables)))
+    key = jax.random.PRNGKey(6)
+    eps = torch.from_numpy(jax_eps(jmodel, variables, key, (b, jspec.n_agents, SMALL["obs_features"])))
+    pairs = [
+        (tmodel(tbatch, eps=eps), jmodel.apply(variables, jbatch, None, key)),
+        (tmodel.fused_call(tbatch, eps=eps)[:2], jmodel.apply(variables, jbatch, None, key, method="fused_call")[:2]),
+        (tmodel.mean_call(tbatch), jmodel.apply(variables, jbatch, method="mean_call")),
+    ]
+    return [(g, np.asarray(w, dtype=np.float32)) for got, want in pairs for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_forward_matches_jax(case):
+    """The main path's compute dtype: 9 agents in two groups, B = 64, in
+    bfloat16, by the plain call, the fused call and the mean call.  Held
+    at rtol 2^-7 with no atol (on this CPU the outputs came out
+    bit-equal).  The control: the same port computing in float32 misses
+    that tolerance on every output, so the test tells the two precisions
+    apart."""
+    for g, w in _bf16_pairs(case, "bfloat16"):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=2.0 ** -7, atol=0)
+    for g, w in _bf16_pairs(case, "float32"):
+        assert not np.allclose(g.detach().numpy(), w, rtol=2.0 ** -7, atol=0)
