@@ -105,9 +105,26 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    while the world model's grads stay as training left them; one update of each trainer on a
    tiny float32 model, card against CPU at the CPU tests' tolerances; the
    phase's peak device memory.
-20. The kernel list as one JSON line, the card, and the result line.
+20. The Q-learning baselines at the YAMLs' full widths (simple_tag 30/10/20,
+   40 agents, hidden 64): VDN on mfvae_tpu_torch/baselines/config/
+   vdn_tuned.yaml (16 envs, batch 64, windows of 16, ring 2,048) for 30
+   updates, with td_lambda_loss and with independent params for 10 each,
+   IQL on iql.yaml for 20, QMIX at vdn_tuned's widths (mixing 32,
+   hypernet 64) for 20, Dyna (horizon 8) through phase 19's world model
+   for 10: ms per learning update (CUDA events, median), the learn step
+   alone and the rest, finite metrics, a learn step by update 3, no kernel
+   launch; the device-busy ms of one VDN update (torch.profiler);
+   save_policy -> load_collect_policy acting as the trained network;
+   self-play through phase 19's world model with the prey-distance scores
+   of scripts/selfplay_study.py, 5 updates per team, the frozen team
+   untouched; one epoch of examples/reference_parity.yaml collecting with
+   vdn:<the saved policy> with the kernels (K1 = K2 = 10, K3 = 20) and one
+   with train.n_envs=4 on plain ops; one update of each baseline and
+   self-play team on a tiny float32 config, card against CPU within 1e-6;
+   the phase's peak device memory and wall.
+21. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-19 print their epoch walls, launches and losses.
+Phases 4-20 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -229,10 +246,11 @@ def imagination_card_vs_cpu(dev) -> dict:
     return worst
 
 
-def behavior_phase(drive, examples: Path, tmp: str, dev) -> dict:
+def behavior_phase(drive, examples: Path, tmp: str, dev):
     """Phase 19: behavior learned in imagination at the recipe's widths.
     ``drive(cfg, use_pallas, epochs, tmp, phase, label)`` trains a world
-    model as phases 4-18 do.  Returns the phase's numbers."""
+    model as phases 4-18 do.  Returns the phase's numbers and the trained
+    behavior_policy.yaml experiment."""
     import torch
 
     from mfvae_tpu_torch import behavior
@@ -349,6 +367,7 @@ def behavior_phase(drive, examples: Path, tmp: str, dev) -> dict:
     check(all(math.isfinite(v) for v in out["returns"].values()), f"non-finite returns {out['returns']}")
     print(f"[19] adversary return over 32 episodes of 128 steps ({time.perf_counter() - t0:.2f} s): "
           f"{json.dumps(out['returns'])}", flush=True)
+    wm_exp = exp  # phase 20's Dyna and self-play run through this world model
     del exp, results, result
 
     # the Dreamer loop's collection leg: one epoch with the saved policy
@@ -385,6 +404,327 @@ def behavior_phase(drive, examples: Path, tmp: str, dev) -> dict:
     out["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"[19] behavior summary: {json.dumps(out)}")
     print(f"[19] phase wall {out['phase_wall_s']:.1f} s", flush=True)
+    return out, wm_exp
+
+
+def baselines_card_vs_cpu(dev) -> dict:
+    """One update of the baselines on tiny float32 configs (simple_tag, 2
+    adversaries, 1 good agent, 1 obstacle), on the card and on the CPU from
+    the same weights, windows and draws (made on the CPU): one clip + Adam
+    step of VDN, VDN TD(lambda) with independent params, IQL and QMIX;
+    Dyna's imagined windows through a tiny world model; one self-play
+    update of each team.  Returns the largest difference of each case;
+    params must agree within 1e-6."""
+    import torch
+
+    from mfvae_tpu_torch import imagination as imag
+    from mfvae_tpu_torch.baselines import dyna, iql, qmix, vdn
+    from mfvae_tpu_torch.config import ModelConfig
+    from mfvae_tpu_torch.envs.mpe import make
+    from mfvae_tpu_torch.inference import WorldModel
+    from mfvae_tpu_torch.models.mavae import MAVAE
+    from mfvae_tpu_torch.training.experiment import build_spec
+
+    tiny = dict(num_good_agents=1, num_adversaries=2, num_obs=1, max_env_steps=5, num_envs=2, num_steps=8,
+                num_updates=4, buffer_size_time=64, min_buffer_time=8, batch_size=4, sample_sequence_length=4,
+                hidden_dim=16, test_during_training=False, log_during_training=False)
+    worst = {}
+
+    def largest(a, b):
+        return max(float((x.detach().cpu() - y.detach()).abs().max()) for x, y in zip(a, b))
+
+    for name, mod, cfg in (
+        ("vdn", vdn, vdn.VdnConfig(**tiny)),
+        ("vdn td_lambda independent", vdn, vdn.VdnConfig(td_lambda_loss=True, param_share=False, **tiny)),
+        ("iql", iql, iql.IqlConfig(reward_scale=0.05, **tiny)),
+        ("qmix", qmix, qmix.QmixConfig(mixing_dim=8, hypernet_dim=16, **tiny)),
+    ):
+        trains = {d: mod.make_train(cfg, device=d) for d in ("cpu", dev)}
+        warm = trains["cpu"].init_runner(0)
+        trains["cpu"].update_step(warm)  # fills the ring; its params are the start of the compared step
+        batch = trains["cpu"].buffer.sample(warm.buffer_state, torch.Generator().manual_seed(1)).experience
+        after = {}
+        for d, train in trains.items():
+            runner = train.init_runner(0)  # a fresh Adam on each side
+            runner.network.load_state_dict(warm.network.state_dict())
+            runner.target.load_state_dict(warm.target.state_dict())
+            train.learn(runner, _to(batch, d))
+            after[d] = list(runner.network.parameters())
+        worst[name] = largest(after[dev], after["cpu"])
+        check(worst[name] <= 1e-6, f"{name}: one update differs between the card and the CPU by {worst[name]}")
+
+    def world(device):
+        env = make("MPE_simple_tag_v3", device=device, num_good_agents=1, num_adversaries=2, num_obs=1,
+                   max_steps=16)
+        spec = build_spec(env)
+        cfg = ModelConfig(idx_features=8, obs_features=8, action_features=8, encoder_hidden=(16,),
+                          decoder_hidden=(32,), compute_dtype="float32")
+        model = MAVAE.from_config(cfg, spec, device="cpu", generator=torch.Generator().manual_seed(0))
+        return env, spec, WorldModel(model.to(device))
+
+    # Dyna's imagined windows
+    cfg = vdn.VdnConfig(**tiny)
+    g = torch.Generator().manual_seed(2)
+    d = max(world("cpu")[1].obs_dims) + 3  # padded obs + one-hot id
+    net = vdn.VdnNetwork(5, 3, 16, in_dim=d, generator=g)
+    real = vdn.Timestep(torch.randn(4, 2, 3, d, generator=g), torch.zeros(4, 2, 3, dtype=torch.int32),
+                        torch.zeros(4, 2), torch.zeros(4, 2, dtype=torch.bool))
+    windows = {}
+    for d in ("cpu", dev):
+        _, _, wm = world(d)
+        imagine = dyna.make_imagine_fn(wm, cfg, horizon=3, imagine_eps=0.3)
+        noise = imagine.draw_noise(torch.Generator().manual_seed(3), 4) if d == "cpu" else _to(noise, d)
+        with torch.no_grad():
+            windows[d] = imagine(net.to(d), _to(real, d), noise=noise)
+    check(torch.equal(windows[dev].actions.cpu(), windows["cpu"].actions), "dyna: actions differ card/CPU")
+    worst["dyna windows"] = largest((windows[dev].obs, windows[dev].rewards),
+                                    (windows["cpu"].obs, windows["cpu"].rewards))
+    check(torch.allclose(windows[dev].obs.cpu(), windows["cpu"].obs, rtol=1e-5, atol=1e-6)
+          and torch.allclose(windows[dev].rewards.cpu(), windows["cpu"].rewards, rtol=1e-5, atol=1e-6),
+          "dyna: imagined windows differ between the card and the CPU")
+
+    # one self-play update of each team
+    def score_a(states, rewards):
+        return rewards[..., :2].sum(0)
+
+    def score_b(states, rewards):
+        return rewards[..., 2:].sum(0)
+
+    for team in ("a", "b"):
+        after, init = {}, None
+        for d in ("cpu", dev):
+            env, spec, wm = world(d)
+            _, _, init_fn, up_a, up_b = imag.make_selfplay_trainer(wm, env, spec, score_a, score_b, horizon=3,
+                                                                    n_rollouts=2, learning_rate=1e-3, hidden=(16,))
+            (pa, opt_a), (pb, opt_b) = init_fn(torch.Generator(device=d).manual_seed(4))
+            if init is None:
+                init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (pa, pb)]
+                obs = tuple(torch.randn(3, len(i), od, generator=g) for (od, _), i in spec.groups)
+                noise = imag.SelfplayRollout(wm, env, spec, 3).draw_noise(g, 6)
+            pa.load_state_dict(init[0])
+            pb.load_state_dict(init[1])
+            if team == "a":
+                up_a(pa, opt_a, pb, _to(obs, d), noise=_to(noise, d))
+            else:
+                up_b(pb, opt_b, pa, _to(obs, d), noise=_to(noise, d))
+            after[d] = list(pa.parameters()) + list(pb.parameters())
+        worst[f"selfplay team {team}"] = largest(after[dev], after["cpu"])
+        check(worst[f"selfplay team {team}"] <= 1e-6, f"self-play team {team}: card and CPU differ")
+    return worst
+
+
+def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
+    """Phase 20: the Q-learning baselines at the YAMLs' full widths, Dyna
+    and self-play over phase 19's behavior world model (``wm_exp``), and
+    the vdn: collect policy.  Returns the phase's numbers."""
+    import torch
+
+    from mfvae_tpu_torch import imagination as imag
+    from mfvae_tpu_torch.baselines import collect_policy, dyna, iql, qmix, vdn
+    from mfvae_tpu_torch.behavior import collect_start_states
+    from mfvae_tpu_torch.config import load_config
+    from mfvae_tpu_torch.inference import WorldModel
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.experiment import build_spec
+    from mfvae_tpu_torch.training.trainer import make_action_sampler
+
+    cfg_dir = Path(__file__).resolve().parent / "mfvae_tpu_torch" / "baselines" / "config"
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def timed(fn, n):
+        """n calls of fn, each between two CUDA events and synchronised:
+        (median ms, all ms, the last result)."""
+        times, res = [], None
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), times, res
+
+    def run(label, train, updates, cfg):
+        """``updates`` updates of ``train``, timed one by one; learn timed
+        alone on fresh windows.  Checks finite losses, a learn step by
+        update 3 and no kernel launch."""
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = train.init_runner(cfg.seed)
+        rows, times = [], []
+        for i in range(updates):
+            _, (ms,), m = timed(lambda: train.update_step(runner), 1)
+            times.append(ms)
+            rows.append({k: float(v) for k, v in m.items()})
+            if i == 2:
+                check(runner.opt_step >= 1, f"{label}: no learn step ran by update 3 (ring size "
+                                            f"{runner.buffer_state.size})")
+        wall_s = time.perf_counter() - t0
+        check(all(math.isfinite(v) for r in rows for v in r.values()), f"{label}: non-finite metrics {rows[-1]}")
+        launches = dict(ops.LAUNCHES)
+        check(not any(launches.values()), f"{label} launched kernels: {launches}")
+        g = torch.Generator(device=dev).manual_seed(20)
+        batch = train.buffer.sample(runner.buffer_state, g).experience
+        learn_ms, learn_all, _ = timed(lambda: train.learn(runner, batch), 5)
+        # the updates that learn and run no greedy test
+        learning = [ms for i, ms in enumerate(times) if i >= 3 and not (cfg.test_during_training
+                                                                        and i % cfg.test_interval == 0)]
+        ms = statistics.median(learning)
+        res = {"updates": updates, "ms_per_update": ms, "ms_all": [round(x, 3) for x in times],
+               "learn_ms": learn_ms, "rollout_ms": ms - learn_ms, "wall_s": wall_s, "final": rows[-1],
+               "opt_steps": runner.opt_step}
+        print(f"[20] {label}: {updates} updates in {wall_s:.2f} s; ms per learning update {ms:.3f} (median of "
+              f"{len(learning)}, CUDA events), learn alone {learn_ms:.3f} (median of 5), rollout and the rest "
+              f"{ms - learn_ms:.3f}; final {json.dumps(rows[-1])}; launches {launches}", flush=True)
+        return res, runner
+
+    # ----------------------------------------------------------- VDN family
+    tuned = str(cfg_dir / "vdn_tuned.yaml")
+    base = dict(num_updates=1500, log_during_training=False)
+
+    def vdn_cfg(cls=vdn.VdnConfig, path=tuned, **kw):
+        cfg = cls.from_yaml(path)
+        for k, v in {**base, **kw}.items():
+            setattr(cfg, k, v)
+        return cfg
+
+    cfg = vdn_cfg()
+    check((cfg.num_good_agents, cfg.num_adversaries, cfg.num_obs, cfg.hidden_dim, cfg.num_envs, cfg.batch_size,
+           cfg.sample_sequence_length, cfg.buffer_size_time) == (10, 30, 20, 64, 16, 64, 16, 2048),
+          "vdn_tuned.yaml is not the configuration this phase names")
+    train = vdn.make_train(cfg, device=dev)
+    out["vdn"], runner = run("vdn (vdn_tuned.yaml)", train, 30, cfg)
+
+    # device-busy time of one learning VDN update
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train.update_step(runner)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    check(bool(rows), "torch.profiler recorded no device time for a VDN update")
+    out["vdn"]["device_busy_ms"] = sum(e.self_device_time_total for e in rows) / 1e3
+    out["vdn"]["device_kernels"] = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    out["vdn"]["top_kernels_ms"] = [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
+    print(f"[20] vdn: one learning update keeps the device busy {out['vdn']['device_busy_ms']:.3f} ms in "
+          f"{out['vdn']['device_kernels']} kernels (torch.profiler); the largest (name, calls, ms): "
+          f"{json.dumps(out['vdn']['top_kernels_ms'])}", flush=True)
+
+    # save -> load: the reloaded policy acts greedily as the trained network
+    path = f"{tmp}/vdn_policy.npz"
+    env = train.env
+    collect_policy.save_policy(path, runner.network, hidden_dim=cfg.hidden_dim, param_share=cfg.param_share,
+                               action_dim=5, n_agents=env.num_agents)
+    spec = build_spec(env)
+    g_act = torch.Generator(device=dev).manual_seed(23)
+    pol = collect_policy.load_collect_policy(path, env, spec, 0.0, make_action_sampler(env, spec)[0])
+    obs, state = env.reset_stacked(torch.Generator(device=dev).manual_seed(21), batch_shape=(8,))
+    carry = pol.init_carry((8,))
+    h = torch.zeros(8, env.num_agents, cfg.hidden_dim, device=dev)
+    for _ in range(4):
+        carry, acts = pol.step(carry, obs, state, g_act)
+        with torch.no_grad():
+            h, q = runner.network(h, vdn._pack_obs(env, obs, env.num_agents)[None],
+                                  torch.zeros(1, 8, dtype=torch.bool, device=dev))
+        check(torch.equal(acts, torch.argmax(q[0], -1).to(torch.int32)), "the reloaded policy acts otherwise")
+        obs, state, *_ = env.step_stacked(state, acts)
+    print(f"[20] save_policy -> load_policy: greedy actions of 8 envs over 4 steps equal ({path})", flush=True)
+    del runner, train
+
+    for label, kw, n in (("vdn td_lambda", dict(td_lambda_loss=True), 10),
+                         ("vdn independent params", dict(param_share=False), 10)):
+        c = vdn_cfg(**kw)
+        out[label], _ = run(label, vdn.make_train(c, device=dev), n, c)
+    c = vdn_cfg(iql.IqlConfig, str(cfg_dir / "iql.yaml"))
+    out["iql"], _ = run("iql (iql.yaml)", iql.make_train(c, device=dev), 20, c)
+    c = vdn_cfg(qmix.QmixConfig, mixing_dim=32, hypernet_dim=64)
+    out["qmix"], _ = run("qmix (vdn_tuned widths, mixing 32, hypernet 64)", qmix.make_train(c, device=dev), 20, c)
+
+    # ---------------------------------------------- Dyna over phase 19's model
+    wm = WorldModel(wm_exp.carry.train_state.model)
+    wm_grads = [None if p.grad is None else p.grad.clone() for p in wm.model.parameters()]
+    check(wm.spec.n_agents == 40, "the behavior world model is not simple_tag's 40 agents")
+    c = vdn_cfg()
+    out["dyna"], _ = run("dyna (vdn_tuned, horizon 8, behavior world model)",
+                         dyna.make_dyna_train(c, wm, horizon=8, device=dev), 10, c)
+
+    # ------------------------------------------------- self-play, same model
+    exp = wm_exp
+    n_adv, n_good = exp.cfg.env.num_adversaries, exp.cfg.env.num_good_agents
+    od_adv = exp.spec.obs_dims[0]
+    prey_off = 4 + 2 * exp.cfg.env.num_obs + 2 * (n_adv - 1)
+
+    def pair_dists(states):  # [H, B, Σobs] -> [H, B, adv, good] (scripts/selfplay_study.py:70-77)
+        hh, bb = states.shape[:2]
+        adv = states[:, :, : n_adv * od_adv].reshape(hh, bb, n_adv, od_adv)
+        rel = adv[..., prey_off: prey_off + 2 * n_good].reshape(hh, bb, n_adv, n_good, 2)
+        return torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
+
+    def score_adv(states, rewards):
+        return -torch.sum(torch.amin(pair_dists(states), dim=-1), dim=0)
+
+    def score_prey(states, rewards):
+        return torch.sum(torch.amin(pair_dists(states), dim=-2), dim=0)
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    bcfg = copy.deepcopy(exp.cfg.behavior)
+    bcfg.start_pool = 4096
+    pool = collect_start_states(exp, bcfg, g)
+    _, _, init_fn, up_a, up_b = imag.make_selfplay_trainer(wm, exp.env, exp.spec, score_adv, score_prey,
+                                                            horizon=8, n_rollouts=16)
+    (pa, opt_a), (pb, opt_b) = init_fn(g)
+
+    def starts():
+        idx = torch.randint(0, pool[0].shape[0], (16,), generator=g, device=dev)
+        return tuple(o[idx] for o in pool)
+
+    ops.reset_launch_counts()
+    sp = {}
+    for team, update, mine, opt, other in (("a", up_a, pa, opt_a, pb), ("b", up_b, pb, opt_b, pa)):
+        frozen = {k: v.clone() for k, v in other.state_dict().items()}
+        ms, times, m = timed(lambda: update(mine, opt, other, starts(), g)[2], 5)
+        check(all(p.grad is None for p in other.parameters())
+              and all(torch.equal(v, frozen[k]) for k, v in other.state_dict().items()),
+              f"self-play: the frozen team moved or took a grad while team {team} trained")
+        check(all(math.isfinite(float(v)) for v in m.values()), f"self-play team {team}: non-finite {m}")
+        sp[team] = {"ms_per_update": ms, "ms_all": [round(x, 3) for x in times],
+                    "final": {k: float(v) for k, v in m.items()}}
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()), f"self-play launched kernels: {launches}")
+    check(all((p.grad is None) if g0 is None else torch.equal(p.grad, g0)
+              for p, g0 in zip(wm.model.parameters(), wm_grads)),
+          "Dyna or self-play moved the world model's grads")
+    out["selfplay"] = sp
+    print(f"[20] self-play (16 starts x 16 rollouts, horizon 8, prey-distance scores): ms per update, adversaries "
+          f"{sp['a']['ms_per_update']:.3f}, prey {sp['b']['ms_per_update']:.3f} (median of 5, CUDA events); "
+          f"final {json.dumps({t: sp[t]['final'] for t in sp})}; frozen team untouched", flush=True)
+    del exp, wm, pool
+
+    # ------------------------------------------- vdn: collection, both paths
+    recipe = str(examples / "reference_parity.yaml")
+    for label, overrides, use_pallas in (("vdn: collection", [], True),
+                                         ("vdn: collection, n_envs=4", ["train.n_envs=4"], False)):
+        c = load_config(recipe, [f"train.collect_policy=vdn:{path}", *overrides])
+        exp, wall, launches = drive(c, use_pallas, 1, f"{tmp}/vdn_collect_{len(overrides)}", "20",
+                                    f"reference_parity, {label}")
+        (hidden,) = exp.carry.env.policy
+        check(tuple(hidden.shape) == ((4,) if overrides else ()) + (40, cfg.hidden_dim), "no vdn: policy carry")
+        out["launches"][label] = launches
+        out[label] = {"epoch_wall_ms": wall}
+        del exp
+
+    out["card_vs_cpu_max_abs_diff"] = baselines_card_vs_cpu(dev)
+    print(f"[20] one update of each baseline and self-play team, card against CPU (tiny float32, the same "
+          f"draws): largest difference {json.dumps(out['card_vs_cpu_max_abs_diff'])}", flush=True)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[20] baselines summary: {json.dumps(out)}")
+    print(f"[20] peak device memory {out['peak_memory_gib']:.3f} GiB; phase wall {out['phase_wall_s']:.1f} s",
+          flush=True)
     return out
 
 
@@ -1003,10 +1343,15 @@ def main() -> None:
         del control_exp, control_wm
 
         # ------------------------------------------- 19. behavior in imagination
-        behavior_out = behavior_phase(drive, examples, tmp, dev)
+        behavior_out, behavior_exp = behavior_phase(drive, examples, tmp, dev)
         path_launches["behavior: train_behavior x3"] = behavior_out["launches"]
 
-    # ------------------------------------------------------ 20. the kernel list
+        # ------------------------------------------------------- 20. baselines
+        baselines_out = baselines_phase(drive, examples, tmp, dev, behavior_exp)
+        del behavior_exp
+        path_launches.update({f"baselines: {k}": v for k, v in baselines_out["launches"].items()})
+
+    # ------------------------------------------------------ 21. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -1024,11 +1369,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[20] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[21] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[20] per-epoch wall ms, {label}: {w}")
-    print(f"[20] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[21] per-epoch wall ms, {label}: {w}")
+    print(f"[21] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Device-resident replay buffer (mirror of ``mfvae_tpu/data/buffer.py``'s
-``ItemBuffer``).
+"""Device-resident replay buffers (mirror of ``mfvae_tpu/data/buffer.py``'s
+``ItemBuffer`` and ``TrajectoryBuffer``).
 
 The data is a tree (nested tuples / NamedTuples) of tensors with a leading
 [capacity] axis on the run's device, or [shards, capacity] for the
@@ -189,3 +189,68 @@ class ItemBuffer:
             return tree_map(lambda buf: buf[idx], state.data)
         rows = torch.arange(self.shards, device=idx.device)[:, None, None]
         return tree_map(lambda buf: buf[rows, idx].flatten(0, 1), state.data)
+
+
+@dataclass(frozen=True)
+class TrajectoryBuffer:
+    """Time-major trajectory ring for recurrent Q-learning.
+
+    Leaves are [add_batch_size, time_capacity, ...] and the time axis is
+    the ring: ``add`` writes a [add_batch_size, T, ...] chunk (one row per
+    env) at the cursor, cast to the buffer's dtype; ``sample`` returns
+    [sample_batch_size, sample_sequence_length, ...] windows at uniform
+    (env row, start time).  Once the ring is full the starts count from the
+    oldest step (the cursor), so no window crosses the write seam.  As in
+    ``ItemBuffer``, writes are in place and ``cursor``/``size`` are host
+    ints, so ``can_sample`` reads nothing from the device."""
+
+    add_batch_size: int
+    time_capacity: int
+    min_length_time: int = 64
+    sample_batch_size: int = 64
+    sample_sequence_length: int = 8
+
+    def init(self, example_step: Tree) -> BufferState:
+        def make(x):
+            return torch.zeros((self.add_batch_size, self.time_capacity) + tuple(x.shape), dtype=x.dtype,
+                               device=x.device)
+
+        return BufferState(data=tree_map(make, example_step), cursor=0, size=0)
+
+    def add(self, state: BufferState, traj: Tree) -> BufferState:
+        """traj leaves: [add_batch_size, T, ...]."""
+        t = tree_leaves(traj)[0].shape[1]
+        device = tree_leaves(state.data)[0].device
+        idx = (state.cursor + torch.arange(t, device=device)) % self.time_capacity
+
+        def write(buf, x):
+            buf[:, idx] = x.to(buf.dtype)
+
+        tree_map(write, state.data, traj)
+        return BufferState(
+            data=state.data,
+            cursor=(state.cursor + t) % self.time_capacity,
+            size=min(state.size + t, self.time_capacity),
+        )
+
+    def can_sample(self, state: BufferState) -> bool:
+        return state.size >= max(self.min_length_time, self.sample_sequence_length)
+
+    def draw_indices(self, state: BufferState, generator: Optional[torch.Generator]):
+        """(rows [S], starts [S]) of one ``sample``: rows uniform over the
+        env rows, starts uniform over the valid window starts."""
+        device = tree_leaves(state.data)[0].device
+        L, cap = self.sample_sequence_length, self.time_capacity
+        full = state.size >= cap
+        n_starts = cap - L + 1 if full else max(state.size - L + 1, 1)
+        rows = torch.randint(0, self.add_batch_size, (self.sample_batch_size,), generator=generator, device=device)
+        offs = torch.randint(0, n_starts, (self.sample_batch_size,), generator=generator, device=device)
+        return rows, ((state.cursor if full else 0) + offs) % cap
+
+    def sample(self, state: BufferState, generator: Optional[torch.Generator] = None,
+               indices=None) -> SampleBatch:
+        """Windows at ``indices`` = (rows, starts) or at a fresh draw."""
+        rows, starts = self.draw_indices(state, generator) if indices is None else indices
+        offs = torch.arange(self.sample_sequence_length, device=starts.device)
+        time_idx = (starts[:, None] + offs) % self.time_capacity
+        return SampleBatch(experience=tree_map(lambda buf: buf[rows[:, None], time_idx], state.data))

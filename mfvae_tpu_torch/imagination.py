@@ -1,6 +1,5 @@
 """Behavior learned inside the world model (mirror of
-``mfvae_tpu/imagination.py``; the self-play functions are not ported yet,
-ROADMAP M15b).
+``mfvae_tpu/imagination.py``).
 
 A decentralized policy is trained entirely inside ``WorldModel``
 imagination, from real start states, and served as one forward pass per
@@ -14,7 +13,11 @@ env step:
 - ``make_distillation_trainer``: DAgger-style distillation of a batched
   planning teacher (``make_enumerated_teacher``, ``make_cem_teacher``);
 - ``make_policy_actor``: the trained policy under the planners' actor
-  contract, over any leading axes of the stacked obs.
+  contract, over any leading axes of the stacked obs;
+- ``make_selfplay_rollout``, ``make_selfplay_trainer``,
+  ``make_team_actor``: both teams of a two-group scenario learn against
+  each other inside the same world model (alternating best-response
+  REINFORCE), and each team's policy is served on its own.
 
 The networks keep flax's layouts (``models/layers.py``: Dense kernels
 [in, out], LayerNorm epsilon 1e-6 with float32 statistics), so a JAX policy
@@ -42,6 +45,7 @@ visitation rollout and every teacher run under ``torch.no_grad()``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import warnings
@@ -841,3 +845,179 @@ class PolicyActor:
 
 
 make_policy_actor = PolicyActor
+
+
+# ---------------------------------------------------------------- self-play
+class SelfplayNoise(NamedTuple):
+    """The Gumbel draws of one self-play rollout of H steps over B rows."""
+
+    a: torch.Tensor  # [H, B, G_a, K_a] team A (group 0)
+    b: torch.Tensor  # [H, B, G_b, K_b] team B (group 1)
+
+
+class SelfplayRollout:
+    """Two-team policy-in-the-loop imagination: every agent acts from its
+    own team's policy, on its own group's observations (simple_tag: group 0
+    the adversaries, group 1 the good agents).  Discrete actions only.
+
+    ``rollout(policy_a, policy_b, obs_g, generator=None, noise=None,
+    frozen=None) -> (states [H, B, Σobs], rewards [H, B, A], (logp_a
+    [H, B, G_a], ent_a), (logp_b [H, B, G_b], ent_b))``; the team named by
+    ``frozen`` ('a' or 'b') acts under ``torch.no_grad()`` (the JAX
+    package's ``stop_gradient`` of its params), so each team's gradients
+    reach its params through its own logp/ent only."""
+
+    def __init__(self, wm, env, spec: AgentSpec, horizon: int = 8):
+        assert len(spec.groups) == 2, (
+            f"self-play imagination needs exactly two agent groups (teams), "
+            f"spec has {len(spec.groups)}"
+        )
+        assert getattr(env, "discrete_actions", True), (
+            "self-play imagination is discrete-actions only"
+        )
+        self.wm, self.horizon, self.device = wm, horizon, env.device
+        self.shapes = [(len(idxs), int(spec.act_dims[idxs[0]])) for _, idxs in spec.groups]
+
+    def draw_noise(self, generator: Optional[torch.Generator], b: int) -> SelfplayNoise:
+        return SelfplayNoise(*(_gumbel((self.horizon, b, g, k), generator, self.device) for g, k in self.shapes))
+
+    @staticmethod
+    def _team_step(policy, obs_team, gumbel, frozen: bool):
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            logits = torch.log_softmax(policy(obs_team), dim=-1)  # [B, G, K]
+            acts = torch.argmax(logits + gumbel, dim=-1)
+            logp = logits.gather(-1, acts[..., None])[..., 0]
+            ent = -torch.sum(torch.exp(logits) * logits, dim=-1)
+        return acts.to(torch.int32), logp, ent
+
+    def __call__(self, policy_a, policy_b, obs_g, generator: Optional[torch.Generator] = None,
+                 noise: Optional[SelfplayNoise] = None, frozen: Optional[str] = None):
+        if noise is None:
+            noise = self.draw_noise(generator, obs_g[0].shape[0])
+        carry = tuple(obs_g)
+        out = [[] for _ in range(6)]
+        for t in range(self.horizon):
+            acts_a, logp_a, ent_a = self._team_step(policy_a, carry[0], noise.a[t], frozen == "a")
+            acts_b, logp_b, ent_b = self._team_step(policy_b, carry[1], noise.b[t], frozen == "b")
+            # the teams are the spec's two groups: their actions are the
+            # grouped actions
+            ns, rw = self.wm._predict(GroupedBatch(obs=carry, actions=(acts_a, acts_b)))
+            carry = self.wm._state_to_grouped(ns)
+            for xs, x in zip(out, (ns, rw, logp_a, ent_a, logp_b, ent_b)):
+                xs.append(x)
+        states, rewards, logp_a, ent_a, logp_b, ent_b = (torch.stack(xs) for xs in out)
+        return states, rewards, (logp_a, ent_a), (logp_b, ent_b)
+
+
+make_selfplay_rollout = SelfplayRollout
+
+
+def make_selfplay_trainer(
+    wm,
+    env,
+    spec: AgentSpec,
+    score_a_fn: Callable,
+    score_b_fn: Callable,
+    horizon: int = 8,
+    n_rollouts: int = 16,
+    learning_rate: float = 3e-4,
+    entropy_coef: float = 1e-2,
+    hidden: Tuple[int, ...] = (128, 128),
+):
+    """Alternating best-response REINFORCE for BOTH teams inside the same
+    imagination.  Each update trains ONE team's policy while the other is
+    frozen (it still acts); the REINFORCE trainer's per-start leave-one-mean
+    baseline and normalization.
+
+    ``score_X_fn(states [H, B, Σobs], rewards [H, B, A]) -> [B, G_X]``
+    per-agent scores for team X (A = group 0, B = group 1).
+
+    Returns ``(policy_a, policy_b, init_fn, update_a_fn, update_b_fn)``:
+      init_fn(generator, obs_row_a=None, obs_row_b=None) -> ((params_a,
+        opt_a), (params_b, opt_b)): each team's policy module, its weights
+        drawn from ``generator`` (A first), and its Adam;
+      update_X_fn(params_X, opt_X, params_other, obs_starts_g,
+        generator=None, noise=None) -> (params_X, opt_X, metrics), after
+        one Adam step on ``params_X`` in place, its grads cleared;
+        ``noise`` is the rollout's ``SelfplayNoise`` over S·n_rollouts
+        rows."""
+    rollout = SelfplayRollout(wm, env, spec, horizon)
+    (od_a, _), idx_a = spec.groups[0]
+    (od_b, _), idx_b = spec.groups[1]
+    policy_a = PolicyMLP(od_a, hidden, int(spec.act_dims[idx_a[0]]), device=env.device)
+    policy_b = PolicyMLP(od_b, hidden, int(spec.act_dims[idx_b[0]]), device=env.device)
+
+    def init_fn(generator: torch.Generator, obs_row_a=None, obs_row_b=None):
+        for policy, row in ((policy_a, obs_row_a), (policy_b, obs_row_b)):
+            if row is not None and row.shape[-1] != policy.obs_dim:
+                raise ValueError(f"an observation row of width {row.shape[-1]} for a policy over {policy.obs_dim}")
+            policy.reset_parameters(generator)
+        return ((policy_a, torch.optim.Adam(policy_a.parameters(), lr=learning_rate)),
+                (policy_b, torch.optim.Adam(policy_b.parameters(), lr=learning_rate)))
+
+    def _pg_loss(score, logp, ent):
+        # score [B, G], logp [H, B, G] -> leave-one-mean REINFORCE
+        s, g = score.shape[0] // n_rollouts, score.shape[-1]
+        score = score.reshape(s, n_rollouts, g)
+        adv = score - torch.mean(score, dim=1, keepdim=True)
+        adv = adv / (torch.std(score, dim=1, correction=0, keepdim=True) + 1e-6)
+        logp_sum = torch.sum(logp, dim=0).reshape(s, n_rollouts, g)
+        pg = -torch.mean(adv.detach() * logp_sum)
+        ent_mean = torch.mean(ent)
+        return pg - entropy_coef * ent_mean, {
+            "score_mean": torch.mean(score).detach(),
+            "entropy": ent_mean.detach(),
+            "pg_loss": pg.detach(),
+        }
+
+    def _make_update(train_a: bool):
+        def update_fn(params_train, opt_state, params_frozen, obs_starts_g,
+                      generator: Optional[torch.Generator] = None, noise: Optional[SelfplayNoise] = None):
+            obs_g = _tile(obs_starts_g, n_rollouts)
+            if train_a:
+                states, rewards, (logp, ent), _ = rollout(params_train, params_frozen, obs_g, generator, noise,
+                                                          frozen="b")
+                score = score_a_fn(states, rewards)
+            else:
+                states, rewards, _, (logp, ent) = rollout(params_frozen, params_train, obs_g, generator, noise,
+                                                          frozen="a")
+                score = score_b_fn(states, rewards)
+            loss, metrics = _pg_loss(score, logp, ent)
+            _adam_step(opt_state, loss)
+            # no grad outlives the update: the next one may freeze this team
+            opt_state.zero_grad(set_to_none=True)
+            return params_train, opt_state, metrics
+
+        return update_fn
+
+    return policy_a, policy_b, init_fn, _make_update(True), _make_update(False)
+
+
+class TeamActor:
+    """Serve ONE team's self-play policy: ``act(stacked_obs,
+    generator=None, noise=None) -> [*L, G]`` actions for the group's agents
+    from their own observations (argmax when ``greedy``, else a draw with
+    Gumbel ``noise`` [*L, G, K]).  ``policy`` is the module holding the
+    weights (the JAX signature's ``policy`` and ``params`` in one)."""
+
+    def __init__(self, policy: nn.Module, spec: AgentSpec, group: int, greedy: bool = False):
+        self.policy, self.spec, self.group, self.greedy = policy, spec, group, greedy
+        idxs = spec.groups[group][1]
+        self.shape = (len(idxs), int(spec.act_dims[idxs[0]]))
+        self.device = next(policy.parameters()).device
+
+    def draw_noise(self, generator: Optional[torch.Generator], lead=()) -> torch.Tensor:
+        return _gumbel(tuple(lead) + self.shape, generator, self.device)
+
+    @torch.no_grad()
+    def __call__(self, stacked_obs, generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits = self.policy(stacked_to_grouped(self.spec, stacked_obs)[self.group])  # [*L, G, K]
+        if not self.greedy:
+            if noise is None:
+                noise = self.draw_noise(generator, logits.shape[:-2])
+            logits = logits + noise
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+make_team_actor = TeamActor

@@ -42,23 +42,26 @@ def _param(shape, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias`` in the compute dtype."""
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in the compute dtype
+    (``use_bias=False``: no bias leaf, as flax's)."""
 
     def __init__(self, in_dim: int, features: int, dtype=torch.float32, device=None,
-                 generator=None, kernel_init: str = "lecun"):
+                 generator=None, kernel_init: str = "lecun", use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = _param((in_dim, features), device)
-        self.bias = _param((features,), device)
+        self.bias = _param((features,), device) if use_bias else None
         with torch.no_grad():
             if kernel_init in ("ones", "zeros"):
                 self.kernel.fill_(1.0 if kernel_init == "ones" else 0.0)
             else:
                 lecun_normal_(self.kernel, in_dim, generator)
-            self.bias.zero_()
+            if use_bias:
+                self.bias.zero_()
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -130,19 +133,20 @@ class StackedDense(nn.Module):
     (``einsum bai,aio->bao``)."""
 
     def __init__(self, stack: int, in_dim: int, features: int, dtype=torch.float32,
-                 device=None, generator=None):
+                 device=None, generator=None, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = _param((stack, in_dim, features), device)
-        self.bias = _param((stack, features), device)
+        self.bias = _param((stack, features), device) if use_bias else None
         with torch.no_grad():
             for a in range(stack):
                 lecun_normal_(self.kernel[a], in_dim, generator)
-            self.bias.zero_()
+            if use_bias:
+                self.bias.zero_()
 
     def forward(self, x):
         y = torch.einsum("bai,aio->bao", x.to(self.dtype), self.kernel.to(self.dtype))
-        return y + self.bias.to(self.dtype)[None, :, :]
+        return y if self.bias is None else y + self.bias.to(self.dtype)[None, :, :]
 
 
 class StackedMLP(nn.Module):

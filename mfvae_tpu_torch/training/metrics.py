@@ -1,6 +1,7 @@
-"""Metrics sink with the JAX package's tag names (Loss/Train,
+"""Metrics sinks with the JAX package's tag names (Loss/Train,
 Loss/State_Train, Loss/Reward_Train, Loss/KL_Train and the *_Test
-variants).  JSONL always; TensorBoard too where tensorboardX imports."""
+variants).  JSONL always; TensorBoard too where tensorboardX imports;
+wandb (``WandbLogger``) where it imports and is asked for."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import json
 import time
 from datetime import datetime
 from pathlib import Path
+from typing import Optional
 
 try:
     from tensorboardX import SummaryWriter
@@ -50,3 +52,28 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.close()
         self._jsonl.close()
+
+
+class WandbLogger:
+    """Optional wandb sink (the baselines' per-update metrics).  A no-op
+    for ``mode="disabled"``, and with one warning when wandb is not
+    installed, so configs carrying wandb settings still run."""
+
+    def __init__(self, project: str = "mfvae_tpu", mode: str = "disabled", **init_kwargs):
+        self._run = None
+        if mode == "disabled":
+            return
+        try:
+            import wandb
+
+            self._run = wandb.init(project=project, mode=mode, **init_kwargs)
+        except ImportError:
+            print("wandb not installed; WandbLogger is a no-op")
+
+    def log(self, metrics: dict, step: Optional[int] = None):
+        if self._run is not None:
+            self._run.log(metrics, step=step)
+
+    def finish(self):
+        if self._run is not None:
+            self._run.finish()

@@ -338,14 +338,14 @@ def make_action_sampler(env, spec: AgentSpec):
 
 
 def _resolve_collect_policy(env, spec: AgentSpec, cfg: ExperimentConfig, sample_fn):
-    """None for the reference's random rollouts, else a scripted policy
-    (``envs/policies.py``) whose mixture draws from ``sample_fn``.  The
-    learned Q-policies (``vdn:<path>``) are not ported (ROADMAP M16)."""
+    """None for the reference's random rollouts, a learned Q-policy for
+    ``vdn:<path.npz>`` (``baselines/collect_policy.py``), else a scripted
+    policy (``envs/policies.py``); the mixtures draw from ``sample_fn``."""
     name = cfg.train.collect_policy
     if name.startswith("vdn:"):
-        raise NotImplementedError(
-            f"train.collect_policy={name!r} is not ported to the PyTorch package yet (ROADMAP M16)"
-        )
+        from mfvae_tpu_torch.baselines.collect_policy import load_collect_policy  # it imports this module
+
+        return load_collect_policy(name[len("vdn:"):], env, spec, cfg.train.collect_epsilon, sample_fn)
     return make_collect_policy(
         env, spec, name, cfg.train.collect_epsilon, sample_fn, mix_frac=cfg.train.collect_mix_frac
     )

@@ -32,5 +32,8 @@ def test_scan_sees_the_whole_package():
                  "mfvae_tpu_torch/training/unroll.py", "mfvae_tpu_torch/inference.py",
                  "mfvae_tpu_torch/rollout_eval.py", "mfvae_tpu_torch/planning.py",
                  "mfvae_tpu_torch/envs/render.py", "mfvae_tpu_torch/imagination.py",
-                 "mfvae_tpu_torch/behavior.py", "chip_smoke.py"):
+                 "mfvae_tpu_torch/behavior.py", "mfvae_tpu_torch/baselines/vdn.py",
+                 "mfvae_tpu_torch/baselines/iql.py", "mfvae_tpu_torch/baselines/qmix.py",
+                 "mfvae_tpu_torch/baselines/dyna.py", "mfvae_tpu_torch/baselines/collect_policy.py",
+                 "mfvae_tpu_torch/models/qlearning.py", "mfvae_tpu_torch/envs/wrappers.py", "chip_smoke.py"):
         assert must in names
