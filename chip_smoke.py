@@ -122,9 +122,34 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    with train.n_envs=4 on plain ops; one update of each baseline and
    self-play team on a tiny float32 config, card against CPU within 1e-6;
    the phase's peak device memory and wall.
-21. The kernel list as one JSON line, the card, and the result line.
+21. The host backend and the VAE families.  HostExperiment (env.backend=
+   host) at the default config's widths (simple_tag 30/10/20, batch 128,
+   sample_num 128, train_num 10): one host env with random actions and
+   model.use_pallas=true for 2 epochs (no kernel launches, as in the JAX
+   package; the native engine and the native ring resolved), 16 native
+   envs (NativeBatchedCollector) under pursuit for 2 epochs, under
+   vdn:<phase 20's policy> for 1, and simple_world_comm at the default
+   population for 1.  Each prints its epoch walls, the ms each epoch
+   waited on the collector, a train step's ms with the collector stopped
+   and running, a host batch's sample and assembly+H2D ms, the host steps
+   per second of a synchronous collect(2048) and the device-busy ms of one
+   epoch's train steps (torch.profiler).  One train step on one host batch
+   by the card and by the CPU: within 1e-6 at a tiny float32 config,
+   within rtol 1e-4 of the losses at full width in float32 (the bf16
+   difference printed beside it).  Then the VAE families at
+   VaeExperimentConfig's defaults, 1,000 steps each (mlp, conv in bf16,
+   factorized, and mlp with kl_anneal_steps 500 and free_bits 0.02): ms a
+   step, the first and final loss (the final must be lower; with free
+   bits, at least the KL floor free_bits * latent_dim), and one step
+   card against CPU: its losses and each leaf's grads (over the leaf's
+   largest) within 1e-6 in float32, 2^-7 for conv in bf16.  The params
+   after the step are printed, not gated: Adam's first step moves every
+   param by about lr whatever its grad's size, so a grad that cancels to
+   about Adam's eps differs between the two by far more than 1e-6 after
+   it.
+22. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-20 print their epoch walls, launches and losses.
+Phases 4-21 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -725,6 +750,230 @@ def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
     print(f"[20] baselines summary: {json.dumps(out)}")
     print(f"[20] peak device memory {out['peak_memory_gib']:.3f} GiB; phase wall {out['phase_wall_s']:.1f} s",
           flush=True)
+    return out
+
+
+def host_step_card_vs_cpu(exp, dev, seed: int, compute_dtype=None) -> dict:
+    """One train step on one host batch of ``exp`` (on the card) by the card
+    and by the CPU, from the same params, fresh Adam and the same eps (made
+    on the CPU), in ``compute_dtype`` (default: the config's).  Returns the
+    losses' largest relative difference and the params' largest absolute
+    difference."""
+    import torch
+
+    from mfvae_tpu_torch.models.mavae import MAVAE
+    from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    cfg, spec = exp.cfg, exp.spec
+    model_cfg = copy.deepcopy(cfg.model)
+    model_cfg.compute_dtype = compute_dtype or model_cfg.compute_dtype
+    init = {k: v.detach().cpu() for k, v in exp.train_state.model.state_dict().items()}
+    batch = exp.device_batch(exp.buffer.sample())
+    eps = torch.randn(cfg.buffer.batch_size, spec.n_agents, cfg.model.obs_features,
+                      generator=torch.Generator().manual_seed(seed))
+    res = {}
+    for d in ("cpu", dev):
+        model = MAVAE.from_config(model_cfg, spec, device=d)
+        model.load_state_dict(init)
+        state = create_train_state(model, cfg.train)
+        step = make_train_step(cfg.loss, cfg.train.mode, cfg.train.popart_beta)
+        _, outs = step(state, _to(batch, d), eps=eps.to(d))
+        res[d] = ([float(x) for x in outs], [p.detach().cpu() for p in model.parameters()])
+    (l_cpu, p_cpu), (l_dev, p_dev) = res["cpu"], res[dev]
+    return {"loss_rel": max(abs(a - b) / max(abs(a), 1e-30) for a, b in zip(l_cpu, l_dev)),
+            "param_abs": max(float((a - b).abs().max()) for a, b in zip(p_cpu, p_dev))}
+
+
+def host_phase(tmp: str, dev, policy: str) -> dict:
+    """Phase 21, part 1: HostExperiment at the default config's widths.
+    ``policy`` is phase 20's vdn: policy file.  Returns the phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides
+    from mfvae_tpu_torch.envs import native_engine as ne
+    from mfvae_tpu_torch.envs.host_adapter import NativeBatchedCollector
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.host_experiment import HostExperiment
+
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+
+    def train_steps(exp, n):
+        """ms of each of n train steps on fresh host batches, synchronised."""
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            exp.train_step(exp.train_state, exp.device_batch(exp.buffer.sample()), exp.streams["train"])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return times
+
+    runs = (
+        ("n_host_envs=1, random, use_pallas=true", ["model.use_pallas=true"], 2),
+        ("n_host_envs=16, pursuit", ["env.n_host_envs=16", "train.collect_policy=pursuit"], 2),
+        ("n_host_envs=16, vdn:", ["env.n_host_envs=16", f"train.collect_policy=vdn:{policy}"], 1),
+        ("simple_world_comm, n_host_envs=16", ["env.name=MPE_simple_world_comm_v3", "env.n_host_envs=16"], 1),
+    )
+    for i, (label, overrides, epochs) in enumerate(runs):
+        cfg = ExperimentConfig()
+        apply_overrides(cfg, ["env.backend=host", f"train.epoch_num={epochs}", *overrides])
+        cfg.train.log_dir = f"{tmp}/host{i}/results"
+        check((cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs, cfg.buffer.batch_size,
+               cfg.train.sample_num, cfg.train.train_num) == (30, 10, 20, 128, 128, 10),
+              "the host runs are not at the default config's widths")
+        exp = HostExperiment(cfg).setup()
+        check(isinstance(exp.env, ne.NativeHostEnv), f"host {label}: {type(exp.env).__name__} resolved, "
+                                                      "not the native engine")
+        check(exp.buffer.buffer.backend == "native", f"host {label}: the {exp.buffer.buffer.backend} ring "
+                                                      "resolved, not the native one")
+        if cfg.env.n_host_envs > 1:
+            check(type(exp.collector) is NativeBatchedCollector,
+                  f"host {label}: {type(exp.collector).__name__} resolved, not NativeBatchedCollector")
+        if "world_comm" in label:
+            check(exp.spec.n_agents == 40 and exp.spec.act_dims[0] == 20 and len(exp.spec.groups) == 3,
+                  "simple_world_comm is not at the default population")
+        ops.reset_launch_counts()
+        result = exp.run()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        out["launches"][f"host: {label}"] = launches
+        check(not any(launches.values()), f"host {label} launched kernels: {launches}")
+        check(math.isfinite(result["loss_train"]), f"host {label}: non-finite loss {result}")
+        check(result["host_steps"] >= epochs * cfg.train.sample_num, f"host {label}: {result['host_steps']} steps")
+        r = {"epoch_wall_ms": [1e3 * x for x in result["epoch_wall_s"]],
+             "collector_wait_ms": [1e3 * x for x in result["collector_wait_s"]],
+             "loss_train": result["loss_train"], "host_steps": result["host_steps"]}
+        r["train_step_ms_stopped"] = statistics.median(train_steps(exp, 6))
+        sample_ms, assemble_ms = [], []
+        for _ in range(10):
+            t = time.perf_counter()
+            sample = exp.buffer.sample()
+            t1 = time.perf_counter()
+            exp.device_batch(sample)
+            torch.cuda.synchronize()
+            sample_ms.append(1e3 * (t1 - t))
+            assemble_ms.append(1e3 * (time.perf_counter() - t1))
+        r["sample_ms"], r["assemble_h2d_ms"] = statistics.median(sample_ms), statistics.median(assemble_ms)
+        s0, t = exp.collector.steps, time.perf_counter()
+        exp.collector.collect(2048)
+        r["collect_steps_per_s"] = (exp.collector.steps - s0) / (time.perf_counter() - t)
+        exp.collector.start()
+        try:
+            time.sleep(0.05)
+            r["train_step_ms_running"] = statistics.median(train_steps(exp, 6))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                train_steps(exp, cfg.train.train_num)
+                r["profiled_epoch_ms"] = 1e3 * (time.perf_counter() - t)
+        finally:
+            exp.collector.stop()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        check(bool(rows), f"host {label}: torch.profiler recorded no device time")
+        r["device_busy_ms"] = sum(e.self_device_time_total for e in rows) / 1e3
+        r["device_kernels"] = sum(e.count for e in rows)
+        out[label] = r
+        print(f"[21] host {label}: epoch wall ms {[round(x, 3) for x in r['epoch_wall_ms']]}, waited on the "
+              f"collector ms {[round(x, 3) for x in r['collector_wait_ms']]}; train step ms (median of 6) collector "
+              f"stopped {r['train_step_ms_stopped']:.3f}, running {r['train_step_ms_running']:.3f}; host batch: "
+              f"sample {r['sample_ms']:.3f} ms, assembly + H2D {r['assemble_h2d_ms']:.3f} ms; collect(2048) "
+              f"{r['collect_steps_per_s']:.1f} host steps/s; one epoch's {cfg.train.train_num} train steps keep "
+              f"the device busy {r['device_busy_ms']:.3f} of {r['profiled_epoch_ms']:.3f} ms in "
+              f"{r['device_kernels']} kernels; {result['host_steps']} host steps; loss_train "
+              f"{result['loss_train']:.6f}; launches {launches}", flush=True)
+        if i == 0:
+            full = host_step_card_vs_cpu(exp, dev, 3, "float32")
+            bf16 = host_step_card_vs_cpu(exp, dev, 3)
+            out["card_vs_cpu_full_width"] = {"float32": full, "bfloat16": bf16}
+            print(f"[21] one host train step at full width, card against CPU: float32 losses rel "
+                  f"{full['loss_rel']:.3e} (rtol 1e-4), params |diff| {full['param_abs']:.3e}; the config's bf16 "
+                  f"(not gated: each side rounds its own products) losses rel {bf16['loss_rel']:.3e}, params "
+                  f"|diff| {bf16['param_abs']:.3e}", flush=True)
+            check(full["loss_rel"] <= 1e-4, "host: card and CPU losses differ beyond rtol 1e-4 at full width")
+        del exp
+
+    cfg = ExperimentConfig()
+    apply_overrides(cfg, ["env.backend=host", "env.num_good_agents=1", "env.num_adversaries=2", "env.num_obs=1",
+                          "model.compute_dtype=float32", "model.idx_features=8", "model.obs_features=8",
+                          "model.action_features=8", "model.encoder_hidden=[16]", "model.decoder_hidden=[32]",
+                          "buffer.batch_size=8"])
+    cfg.train.log_dir = f"{tmp}/host_tiny/results"
+    exp = HostExperiment(cfg).setup()
+    exp.collector.collect(64)
+    tiny = host_step_card_vs_cpu(exp, dev, 4)
+    out["card_vs_cpu_tiny"] = tiny
+    print(f"[21] one host train step at a tiny float32 config, card against CPU: losses rel {tiny['loss_rel']:.3e}, "
+          f"params |diff| {tiny['param_abs']:.3e} (1e-6)", flush=True)
+    check(tiny["param_abs"] <= 1e-6 and tiny["loss_rel"] <= 1e-6, "host: card and CPU differ at a tiny config")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def vae_phase(tmp: str, dev) -> dict:
+    """Phase 21, part 2: the VAE families at VaeExperimentConfig's defaults,
+    1,000 steps each, and one step card against CPU."""
+    import torch
+
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training import vae_experiment as ve
+    from mfvae_tpu_torch.training.vae_trainer import create_vae_state, make_vae_train_step
+
+    out = {}
+    t_phase = time.perf_counter()
+    runs = (("mlp", {}), ("conv", {}), ("factorized", {}), ("mlp beta", {"kl_anneal_steps": 500, "free_bits": 0.02}))
+    for label, kw in runs:
+        cfg = ve.VaeExperimentConfig(family=label.split()[0], log_dir=f"{tmp}/vae", run_name=label.replace(" ", "_"),
+                                     **kw)
+        ops.reset_launch_counts()
+        r = ve.run_vae_experiment(cfg)
+        check(not any(ops.LAUNCHES.values()), f"vae {label} launched kernels: {dict(ops.LAUNCHES)}")
+        check(math.isfinite(r["final_loss"]), f"vae {label}: non-finite loss ({r})")
+        if cfg.free_bits:
+            # the anneal starts the KL weight at 0 and the free bits floor the
+            # KL at free_bits * latent_dim, above the first chunk's loss
+            floor = cfg.free_bits * cfg.latent_dim
+            check(r["final_loss"] >= floor, f"vae {label}: final loss under the free-bits floor {floor} ({r})")
+        else:
+            check(r["final_loss"] < r["first_loss"], f"vae {label}: the loss did not fall ({r})")
+        r["ms_per_step"] = 1e3 * r["wall_s"] / cfg.steps
+        out[label] = r
+        print(f"[21] vae {label} ({cfg.steps} steps, batch {cfg.batch_size}): {r['ms_per_step']:.3f} ms a step; "
+              f"first loss {r['first_loss']:.6f}, final {r['final_loss']:.6f}", flush=True)
+
+    worst = {}
+    for family in ("mlp", "conv", "factorized"):
+        cfg = ve.VaeExperimentConfig(family=family)
+        model, gen = ve.build(cfg, "cpu", torch.Generator().manual_seed(5))
+        init = model.state_dict()
+        batch = gen(torch.Generator().manual_seed(6))
+        g = torch.Generator().manual_seed(7)
+        if family == "factorized":
+            eps = [torch.randn(cfg.batch_size, n, generator=g)
+                   for n in (cfg.shared_latent, cfg.private_latent, cfg.private_latent)]
+        else:
+            eps = torch.randn(cfg.batch_size, cfg.latent_dim, generator=g)
+        res = {}
+        for d in ("cpu", dev):
+            m, _ = ve.build(cfg, d, torch.Generator(device=d).manual_seed(5))
+            m.load_state_dict(init)
+            step = make_vae_train_step(kl_weight=cfg.kl_weight, use_huber=cfg.use_huber)
+            _, loss = step(create_vae_state(m, cfg.lr), _to(batch, d), None, _to(eps, d))
+            res[d] = ([float(x) for x in loss], [p.grad.cpu() for p in m.parameters()],
+                      [p.detach().cpu() for p in m.parameters()])
+        (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = res["cpu"], res[dev]
+        worst[family] = {
+            "loss_rel": max(abs(a - b) / max(abs(a), 1e-30) for a, b in zip(l_cpu, l_dev)),
+            # each leaf's grad difference over its largest grad
+            "grad_rel": max(float((a - b).abs().max() / a.abs().max().clamp(min=1e-30)) for a, b in zip(g_cpu, g_dev)),
+            "param_abs": max(float((a - b).abs().max()) for a, b in zip(p_cpu, p_dev)),
+        }
+        tol = 2.0 ** -7 if family == "conv" else 1e-6  # conv computes in bf16
+        check(worst[family]["loss_rel"] <= tol and worst[family]["grad_rel"] <= tol,
+              f"vae {family}: one step differs between the card and the CPU: {worst[family]}")
+    out["card_vs_cpu"] = worst
+    print(f"[21] vae one step, card against CPU: {json.dumps(worst)}", flush=True)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1351,7 +1600,16 @@ def main() -> None:
         del behavior_exp
         path_launches.update({f"baselines: {k}": v for k, v in baselines_out["launches"].items()})
 
-    # ------------------------------------------------------ 21. the kernel list
+        # ----------------------------------- 21. the host backend, the VAE families
+        policy = f"{tmp}/vdn_policy.npz"  # phase 20's
+        check(Path(policy).exists(), "phase 20 left no vdn: policy file")
+        host_out = host_phase(tmp, dev, policy)
+        path_launches.update(host_out["launches"])
+        vae_out = vae_phase(tmp, dev)
+        print(f"[21] host and VAE summary: {json.dumps({'host': host_out, 'vae': vae_out})}")
+        print(f"[21] phase wall {host_out['phase_wall_s'] + vae_out['phase_wall_s']:.1f} s", flush=True)
+
+    # ------------------------------------------------------ 22. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -1369,11 +1627,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[21] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[22] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[21] per-epoch wall ms, {label}: {w}")
-    print(f"[21] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[22] per-epoch wall ms, {label}: {w}")
+    print(f"[22] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ model's replay collection (mirror of ``mfvae_tpu/baselines/collect_policy.py``).
 The greedy policy of a trained VDN/IQL agent (``baselines/vdn.py``
 ``VdnNetwork``) becomes ``train.collect_policy: "vdn:<path.npz>"`` of the
 world-model experiment, so the model learns from the states an actual
-policy visits.
+policy visits: ``QCollectPolicy`` on the device path,
+``HostQCollectPolicy`` in the host backend's collectors.
 
 The policy file is the JAX package's ``.npz``, written and read with numpy
 alone: every parameter under its ``/``-joined flax path
@@ -131,8 +132,60 @@ def load_collect_policy(path: str, env, spec: AgentSpec, epsilon: float, sample_
 
 
 class HostQCollectPolicy:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HostQCollectPolicy serves the host collectors, which are not "
-            "ported to the PyTorch package yet (ROADMAP M18)"
-        )
+    """Greedy (epsilon-mixed) actions of a saved policy for the host
+    collectors (``envs/host_adapter.py`` ``AsyncCollector`` and
+    ``NativeBatchedCollector``), which step numpy envs on the CPU.
+
+    The port's ``VdnNetwork`` runs on the CPU under ``torch.no_grad``, one
+    forward per collected step, batched over the K host envs; the obs are
+    packed from the collectors' named-obs dicts in numpy, and the epsilon
+    mixture draws from the collector's numpy generator, as the JAX
+    package's does.  An episode reset zeroes the hidden rows of the envs
+    that ended (the done-masking the agent trained with)."""
+
+    def __init__(self, path: str, agents, obs_dims: Dict[str, int], epsilon: float,
+                 rng: np.random.Generator, n_envs: int = 1):
+        params, meta = load_policy(path)
+        self.agents = list(agents)
+        n = len(self.agents)
+        if meta["n_agents"] != n:
+            raise ValueError(f"policy was trained for {meta['n_agents']} agents but the host env has {n}")
+        self.epsilon = float(epsilon)
+        self.rng = rng
+        self.n_envs = int(n_envs)
+        self.action_dim = int(meta["action_dim"])
+        self.hidden_dim = int(meta["hidden_dim"])
+        self._d_pad = max(int(obs_dims[a]) for a in self.agents)
+        self.network = VdnNetwork(self.action_dim, n, self.hidden_dim, bool(meta["param_share"]),
+                                  in_dim=self._d_pad + n)
+        self.network.load_state_dict(qnet_params_from_jax(params))
+        self.network.requires_grad_(False)
+        self._no_done = torch.zeros((1, self.n_envs), dtype=torch.bool)
+        self.reset()
+
+    def reset(self, done_mask: Optional[np.ndarray] = None) -> None:
+        """Zero the hidden state, everywhere or only where done."""
+        if done_mask is None:
+            self._h = torch.zeros((self.n_envs, len(self.agents), self.hidden_dim))
+        else:
+            self._h[torch.from_numpy(np.asarray(done_mask, bool))] = 0.0
+
+    def _pack(self, obs: Dict[str, np.ndarray]) -> np.ndarray:
+        """named obs (each [od] or [K, od]) -> [K, N, d_pad + N]."""
+        b, n = self.n_envs, len(self.agents)
+        out = np.zeros((b, n, self._d_pad + n), np.float32)
+        for i, a in enumerate(self.agents):
+            v = np.asarray(obs[a], np.float32).reshape(b, -1)
+            out[:, i, : v.shape[1]] = v
+            out[:, i, self._d_pad + i] = 1.0
+        return out
+
+    @torch.no_grad()
+    def actions(self, obs: Dict[str, np.ndarray]) -> np.ndarray:
+        """Greedy eps-mixed actions [K, N] int32 from the named obs."""
+        packed = torch.from_numpy(self._pack(obs))
+        self._h, q = self.network(self._h, packed[None], self._no_done)
+        acts = torch.argmax(q[0], dim=-1).to(torch.int32).numpy()
+        take = self.rng.random(acts.shape) < self.epsilon
+        rand = self.rng.integers(0, self.action_dim, size=acts.shape)
+        return np.where(take, rand, acts).astype(np.int32)

@@ -1,9 +1,9 @@
 """Device-resident replay buffers (mirror of ``mfvae_tpu/data/buffer.py``'s
 ``ItemBuffer`` and ``TrajectoryBuffer``).
 
-The data is a tree (nested tuples / NamedTuples) of tensors with a leading
-[capacity] axis on the run's device, or [shards, capacity] for the
-batched epoch, where each of ``shards`` envs feeds its own shard (the JAX
+The data is a tree (nested tuples, NamedTuples and dicts) of tensors with
+a leading [capacity] axis on the run's device, or [shards, capacity] for
+the batched epoch, where each of ``shards`` envs feeds its own shard (the JAX
 package vmaps one buffer over that axis).  Unlike the JAX buffer, which
 returns a new state from every pure call, ``add``/``add_batch`` write into
 the state's tensors in place (one copy instead of a fresh capacity-sized
@@ -24,9 +24,12 @@ Tree = Any
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` leaf-wise over tensors nested in tuples/NamedTuples."""
+    """Apply ``fn`` leaf-wise over tensors nested in tuples/NamedTuples
+    and dicts."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, tuple):
         mapped = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)
@@ -36,7 +39,8 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 def tree_leaves(tree: Tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
-    return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    subs = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for sub in subs for leaf in tree_leaves(sub)]
 
 
 class BufferState(NamedTuple):

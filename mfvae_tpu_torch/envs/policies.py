@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mfvae_tpu_torch.envs.mpe import SimpleAdversaryEnv, SimpleTagEnv
@@ -79,11 +80,68 @@ def _adversary_deltas(env: SimpleAdversaryEnv, state) -> torch.Tensor:
 _DELTA_FNS = {SimpleTagEnv: _tag_deltas, SimpleAdversaryEnv: _adversary_deltas}
 
 
-def host_pursuit_actions(*args, **kwargs):
-    raise NotImplementedError(
-        "host_pursuit_actions serves the host collectors, which are not "
-        "ported to the PyTorch package yet (ROADMAP M18)"
+def host_pursuit_actions(
+    kind: str,
+    pos: np.ndarray,
+    n_adv: int,
+    rng: np.random.Generator,
+    epsilon: float,
+    discrete: bool = True,
+    goal_pos=None,
+):
+    """Numpy pursuit actions.  ``kind``: 'tag' (chase/evade with
+    wall-aware prey) or 'adversary' (goal-seek good agents, chasing
+    goal-blind adversary, ``goal_pos`` required).  ``pos`` is [A, 2] for
+    one env or [K, A, 2] batched (adversaries first either way;
+    ``goal_pos`` then [2] or [K, 2]).  Returns [A] / [K, A] int32 or
+    [A, 2] / [K, A, 2] float32; epsilon mixes uniform-random actions per
+    agent.  The host collectors' policy (``envs/host_adapter.py``), in
+    numpy: bit-equal to the JAX package's at one generator state."""
+    pos = np.asarray(pos, np.float64)
+    single = pos.ndim == 2
+    p = pos[None] if single else pos  # [K, A, 2]
+    adv, good = p[:, :n_adv], p[:, n_adv:]
+    d = np.linalg.norm(adv[:, :, None, :] - good[:, None, :, :], axis=-1)
+    nearest_prey = np.argmin(d, axis=2)  # [K, n_adv]
+    chase = (
+        np.take_along_axis(good, nearest_prey[:, :, None], axis=1) - adv
     )
+    if kind == "tag":
+        nearest_hunter = np.argmin(d, axis=1)  # [K, G]
+        flee = good - np.take_along_axis(
+            adv, nearest_hunter[:, :, None], axis=1
+        )
+        flee = flee / np.maximum(
+            np.linalg.norm(flee, axis=-1, keepdims=True), 1e-6
+        )
+        wall = -np.sign(good) * np.maximum(np.abs(good) - 0.8, 0.0) * 2.0
+        delta = np.concatenate([chase, flee + wall], axis=1)
+    elif kind == "adversary":
+        gp = np.asarray(goal_pos, np.float64)
+        if single:
+            gp = gp[None]
+        seek = gp[:, None, :] - good
+        delta = np.concatenate([chase, seek], axis=1)
+    else:
+        raise ValueError(f"unknown host pursuit kind {kind!r}")
+
+    k, n = delta.shape[0], delta.shape[1]
+    if discrete:
+        ax = np.argmax(np.abs(delta), axis=-1)  # [K, A]
+        comp = np.take_along_axis(delta, ax[..., None], axis=-1)[..., 0]
+        act = np.where(ax == 0, np.where(comp > 0, 2, 1),
+                       np.where(comp > 0, 4, 3))
+        act = np.where(np.linalg.norm(delta, axis=-1) < 1e-6, 0, act)
+        rand = rng.integers(0, 5, size=(k, n))
+        take = rng.uniform(size=(k, n)) < epsilon
+        out = np.where(take, rand, act).astype(np.int32)
+        return out[0] if single else out
+    norm = np.maximum(np.linalg.norm(delta, axis=-1, keepdims=True), 1e-6)
+    act = delta / norm
+    rand = rng.uniform(-1.0, 1.0, size=(k, n, 2))
+    take = (rng.uniform(size=(k, n)) < epsilon)[..., None]
+    out = np.where(take, rand, act).astype(np.float32)
+    return out[0] if single else out
 
 
 def _leading(state) -> tuple:

@@ -1,5 +1,6 @@
 """Bridge from the JAX package's parameters to the port's (the MAVAE, the
-imagination networks, the baselines' Q-networks and QMIX mixer).
+imagination networks, the baselines' Q-networks and QMIX mixer, and the
+VAE families).
 
 The port's layers keep flax's layouts and leaf names (``layers.py``), so a
 flax path ``encoders_0/fc1/kernel`` is the port's ``encoders.0.fc1.kernel``
@@ -16,6 +17,14 @@ port's ``agent.{dense0, gru.cell.<gate>, dense1}.<leaf>``; the mixer's
 ``hyper_*/{kernel,bias}`` keep their names.  The inverses return the
 nested flax tree under ``params``, and ``flatten_flax`` its ``/``-joined
 keys, the layout of the ``.npz`` and safetensors files.
+
+The VAE families' dense layers keep flax's names and layout
+(``encoder/fc0/kernel`` is ``encoder.fc0.kernel``; ``encoders_0`` is
+``encoders.0``).  Their convolutions hold torch's layout: a flax ``Conv``
+kernel HWIO becomes ``weight`` OIHW, a ``ConvTranspose`` kernel HWIO is
+flipped in both spatial axes and becomes [in, out, kH, kW].  These
+bridges raise on a leaf they do not know, and ``load_state_dict`` (strict
+by default) on a missing one.
 """
 
 from __future__ import annotations
@@ -139,3 +148,66 @@ def unflatten_flax(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[last] = leaf
     return root
+
+
+_VAE_DENSE = re.compile(r"^(fc\d+|out)$")
+
+
+def _dense_leaf(path, leaf, owner: str) -> torch.Tensor:
+    if len(path) != 3 or not _VAE_DENSE.match(path[1]) or path[2] not in ("kernel", "bias"):
+        raise ValueError(f"not a {owner} leaf: {'/'.join(path)}")
+    return _as_tensor(leaf)
+
+
+def vae_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``VAE`` tree -> the port's ``VAE`` state_dict."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, leaf in _flatten(tree):
+        if path[0] not in ("encoder", "decoder"):
+            raise ValueError(f"not a VAE leaf: {'/'.join(path)}")
+        out[".".join(path)] = _dense_leaf(path, leaf, "VAE")
+    return out
+
+
+_CONV_MODULE = re.compile(r"^(enc|dec)(\d+)$")
+
+
+def conv_vae_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``ConvVAE`` tree -> the port's ``ConvVAE`` state_dict."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, leaf in _flatten(tree):
+        if len(path) != 2 or path[1] not in ("kernel", "bias"):
+            raise ValueError(f"not a ConvVAE leaf: {'/'.join(path)}")
+        t = _as_tensor(leaf)
+        m = _CONV_MODULE.match(path[0])
+        if path[0] in ("enc_head", "dec_head"):
+            out[".".join(path)] = t
+        elif m is None:
+            raise ValueError(f"not a ConvVAE leaf: {'/'.join(path)}")
+        elif path[1] == "bias":
+            out[f"{path[0]}.bias"] = t
+        elif m.group(1) == "enc":  # HWIO -> OIHW
+            out[f"{path[0]}.weight"] = t.permute(3, 2, 0, 1).contiguous()
+        else:  # HWIO, flipped in H and W -> [in, out, kH, kW]
+            out[f"{path[0]}.weight"] = t.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    return out
+
+
+_FACTORIZED_MODULE = re.compile(r"^(encoders|decoders)_(\d+)$")
+
+
+def factorized_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``FactorizedMultimodalVAE`` tree -> the port's state_dict."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, leaf in _flatten(tree):
+        m = _FACTORIZED_MODULE.match(path[0])
+        if m is None:
+            raise ValueError(f"not a FactorizedMultimodalVAE leaf: {'/'.join(path)}")
+        out[".".join((m.group(1), m.group(2)) + path[1:])] = _dense_leaf(path, leaf, "FactorizedMultimodalVAE")
+    return out

@@ -133,6 +133,13 @@ def kl_gaussian(mu: torch.Tensor, logvar: torch.Tensor, free_bits: float = 0.0) 
     return torch.mean(torch.sum(per_dim.reshape(per_dim.shape[0], -1), dim=1))
 
 
+def legacy_vae_loss(y: torch.Tensor, y_hat: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
+                    kl_weight: float = 0.0025) -> torch.Tensor:
+    """The reference's single-joint-decoder ELBO: MSE + weighted KL
+    (torch_ver/model.py:8-16 loss_vae_fn)."""
+    return mse(y, y_hat) + kl_gaussian(mu, logvar) * kl_weight
+
+
 class LossOutputs(NamedTuple):
     loss: torch.Tensor
     s_loss: torch.Tensor

@@ -62,7 +62,6 @@ def build_spec(env) -> AgentSpec:
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     t = cfg.train
     off_path = {
-        "env.backend='host'": (cfg.env.backend == "host", "M18"),
         "mesh.enable": (cfg.mesh.enable, "M17"),
         "train.profile_epochs": (t.profile_epochs > 0, "M20"),
         "train.debug_nans": (t.debug_nans, "M20"),
@@ -299,8 +298,13 @@ class Experiment:
 
 
 def run_experiment(cfg: ExperimentConfig, device="cuda") -> dict:
-    """The JAX package's dispatcher; only the on-device backend is ported
-    (env.backend='host' is refused, ROADMAP M18)."""
+    """The JAX package's dispatcher on ``env.backend``: 'jax' -> the
+    on-device ``Experiment``; 'host' -> ``HostExperiment`` (host envs and
+    the host ring feeding the device)."""
+    if cfg.env.backend == "host":
+        from mfvae_tpu_torch.training.host_experiment import HostExperiment
+
+        return HostExperiment(cfg, device).setup().run()
     return Experiment(cfg, device).setup().run()
 
 

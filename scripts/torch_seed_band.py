@@ -9,14 +9,19 @@ same seeds, printing min/max of loss_train and loss_test per package.
 ``pursuit_batched_small``, ``unroll_sticky_small`` and
 ``world_comm_small`` are parity_small with the collection, unroll and
 scenario options of tests/test_torch_goldens.py set in both packages.
-Besides min/max it prints each package's mean and standard error, and the
-gap of the means in standard errors of their difference.
+``vae_mlp_small``, ``vae_conv_small`` and ``vae_factorized_small`` are
+tests/test_vae_experiment.py's VAE family runs (``run_vae_experiment``,
+its ``final_loss``).  Besides min/max it prints each package's mean and
+standard error, and the gap of the means in standard errors of their
+difference.
 
     JAX_PLATFORMS=cpu python scripts/torch_seed_band.py [N] [--config parity_small|det_small|popart_small|
-        pursuit_batched_small|unroll_sticky_small|world_comm_small]
+        pursuit_batched_small|unroll_sticky_small|world_comm_small|vae_mlp_small|vae_conv_small|
+        vae_factorized_small]
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -31,13 +36,15 @@ jax.config.update("jax_default_matmul_precision", "highest")
 sys.path.insert(0, ".")
 from tests.test_pinned_goldens import golden_configs, run_one  # noqa: E402
 from tests.test_torch_experiment import parity_small  # noqa: E402
-from tests.test_torch_goldens import CONFIGS  # noqa: E402
+from tests.test_torch_goldens import CONFIGS, VAE_CONFIGS  # noqa: E402
 
 import torch  # noqa: E402
 
+from mfvae_tpu.training import vae_experiment as jvae  # noqa: E402
 from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
+from mfvae_tpu_torch.training.vae_experiment import run_vae_experiment  # noqa: E402
 
-PORT_CONFIGS = {"parity_small": parity_small, **CONFIGS}
+PORT_CONFIGS = {"parity_small": parity_small, **CONFIGS, **VAE_CONFIGS}
 # the options each derived config sets on parity_small, for the JAX side
 DERIVED = {
     "pursuit_batched_small": {"train.collect_policy": "pursuit", "train.n_envs": 2},
@@ -57,16 +64,29 @@ def jax_config(tmp: str, config: str, seed: int):
     return cfg
 
 
+def run_pair(config: str, seed: int):
+    """-> (the JAX run's metrics, the port's), each a dict."""
+    if config in VAE_CONFIGS:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = VAE_CONFIGS[config](tmp, seed)
+            j = jvae.run_vae_experiment(jvae.VaeExperimentConfig(**dataclasses.asdict(cfg)))
+            r = run_vae_experiment(cfg, "cpu")
+        return {"final_loss": j["final_loss"]}, {"final_loss": r["final_loss"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        j = run_one(jax_config(tmp, config, seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        r = Experiment(PORT_CONFIGS[config](tmp, seed), device="cpu").setup().run()
+    return j, {"loss_train": r["loss_train"], "loss_test": r["loss_test"]}
+
+
 def main(n: int, config: str) -> None:
     out = {"jax": [], "torch": []}
     for seed in range(n):
-        with tempfile.TemporaryDirectory() as tmp:
-            out["jax"].append(run_one(jax_config(tmp, config, seed)))
-        with tempfile.TemporaryDirectory() as tmp:
-            r = Experiment(PORT_CONFIGS[config](tmp, seed), device="cpu").setup().run()
-            out["torch"].append({"loss_train": r["loss_train"], "loss_test": r["loss_test"]})
+        j, r = run_pair(config, seed)
+        out["jax"].append(j)
+        out["torch"].append(r)
         print(seed, out["jax"][-1], out["torch"][-1], flush=True)
-    for key in ("loss_train", "loss_test"):
+    for key in out["torch"][0]:
         stats = {}
         for pkg, runs in out.items():
             vals = [r[key] for r in runs]

@@ -184,6 +184,16 @@ def test_vdn_main_saves_a_loadable_policy(tmp_path, monkeypatch):
     assert meta["n_agents"] == spec.n_agents == build_spec(env).n_agents
 
 
-def test_the_host_collectors_policy_waits_for_the_host_path():
-    with pytest.raises(NotImplementedError, match="M18"):
-        cp.HostQCollectPolicy("p.npz", (), {}, 0.0, np.random.default_rng(0))
+def test_the_host_collectors_policy_waits_for_the_host_path(tmp_path):
+    """Once refused as unported, ``HostQCollectPolicy`` now serves the
+    JAX-saved file to the host collectors: greedy actions over K envs
+    from the named obs, and a wrong population refused as in JAX
+    (tests/test_torch_host.py holds its actions against JAX's)."""
+    path, exp = jax_policy_file(tmp_path / "p.npz")
+    dims = {a: exp.spec.obs_dims[i] for i, a in enumerate(exp.spec.agents)}
+    pol = cp.HostQCollectPolicy(path, exp.spec.agents, dims, 0.0, np.random.default_rng(0), n_envs=2)
+    obs = {a: np.zeros((2, d), np.float32) for a, d in dims.items()}
+    acts = pol.actions(obs)
+    assert acts.shape == (2, exp.spec.n_agents) and acts.dtype == np.int32
+    with pytest.raises(ValueError, match="agents"):
+        cp.HostQCollectPolicy(path, exp.spec.agents[:1], dims, 0.0, np.random.default_rng(0))

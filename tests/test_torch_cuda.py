@@ -169,3 +169,26 @@ def test_train_step_routes_agree_on_the_card(dev):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     for name in p1:
         torch.testing.assert_close(p1[name], p2[name], rtol=1e-4, atol=1e-5)
+
+
+def test_host_backend_launches_no_kernel_on_the_card(dev, tmp_path):
+    """HostExperiment builds its train step without use_pallas, as the JAX
+    package does: model.use_pallas=true launches none of K1-K3."""
+    import math
+
+    from mfvae_tpu_torch.config import ExperimentConfig
+    from mfvae_tpu_torch.training.host_experiment import HostExperiment
+
+    cfg = ExperimentConfig()
+    cfg.env.backend = "host"
+    cfg.env.num_good_agents, cfg.env.num_adversaries, cfg.env.num_obs = 1, 2, 1
+    cfg.model.use_pallas = True
+    cfg.buffer.min_size, cfg.buffer.batch_size = 4, 8
+    cfg.train.epoch_num, cfg.train.sample_num, cfg.train.train_num = 2, 8, 2
+    cfg.train.log_dir = str(tmp_path)
+    exp = HostExperiment(cfg).setup()
+    assert next(exp.train_state.model.parameters()).device.type == "cuda"
+    ops.reset_launch_counts()
+    result = exp.run()
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    assert math.isfinite(result["loss_train"])

@@ -29,17 +29,27 @@ run for seeds 0 to N-1 on the CPU (N = 8 unless stated) and gave
   Over seeds 0-31 the port's mean loss_train lay 0.051 (0.82 standard
   errors) under JAX's and its mean loss_test 0.024 (0.24) over it.
 
+- the VAE families (``run_vae_experiment`` at tests/test_vae_experiment.py's
+  tiny size), final_loss: vae_mlp_small in [0.06572, 0.06830] (the port's
+  seeds 0-7: [0.06343, 0.06969]; the means 1.03 standard errors apart),
+  vae_conv_small in [0.05446, 0.05964] (the port's: [0.05266, 0.06065];
+  0.83) and vae_factorized_small in [1.8486, 2.1999] (the port's:
+  [1.8844, 2.1271]; 0.30).
+
 The port's seed-0 run must land inside the JAX range widened by half its
 width on each side.  Both routes run where the JAX package allows
 ``model.use_pallas`` (det_features, POPART, batched collection); unroll
 refuses it, as in JAX.
 """
 
+from functools import partial
+
 import pytest
 import torch
 
 from mfvae_tpu_torch.config import ExperimentConfig
 from mfvae_tpu_torch.training.experiment import Experiment
+from mfvae_tpu_torch.training.vae_experiment import VaeExperimentConfig, run_vae_experiment
 from tests.test_torch_experiment import _band, _carry_tensors, one_torch_thread, parity_small  # noqa: F401
 
 # name -> ((loss_train min, max), (loss_test min, max)) of JAX seeds 0-7
@@ -49,6 +59,13 @@ BANDS = {
     "pursuit_batched_small": ((0.3140561580657959, 0.6149474382400513), (0.31299617886543274, 0.65189129114151)),
     "unroll_sticky_small": ((0.44665637612342834, 0.8159506916999817), (1.5105311870574951, 2.452324628829956)),
     "world_comm_small": ((1.1488820314407349, 1.6071544885635376), (2.194760799407959, 2.8833723068237305)),
+}
+
+# name -> (final_loss min, max) of JAX seeds 0-7
+VAE_BANDS = {
+    "vae_mlp_small": (0.06572448462247849, 0.06830286234617233),
+    "vae_conv_small": (0.05446115881204605, 0.05963509902358055),
+    "vae_factorized_small": (1.8486042022705078, 2.1998698711395264),
 }
 
 
@@ -103,6 +120,19 @@ CONFIGS = {"det_small": det_small, "popart_small": popart_small,
            "world_comm_small": world_comm_small}
 
 
+def vae_small(family: str, tmp, seed=0) -> VaeExperimentConfig:
+    """tests/test_vae_experiment.py's test_families_train config of one
+    VAE family: 40 steps of batch 16, two chunks of 20."""
+    return VaeExperimentConfig(
+        family=family, steps=40, batch_size=16, log_every=20, latent_dim=8, image_size=8, image_channels=1,
+        conv_channels=(4, 8), modality_dims=(16, 8), shared_latent=4, private_latent=4, kl_weight=0.05,
+        seed=seed, log_dir=str(tmp),
+    )
+
+
+VAE_CONFIGS = {f"vae_{family}_small": partial(vae_small, family) for family in ("mlp", "conv", "factorized")}
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_lands_in_jax_seed_band(tmp_path, name, use_pallas):
@@ -119,6 +149,14 @@ def test_lands_in_jax_seed_band(tmp_path, name, use_pallas):
     assert lo <= result["loss_train"] <= hi, result
     lo, hi = _band(test_lo, test_hi)
     assert lo <= result["loss_test"] <= hi, result
+
+
+@pytest.mark.parametrize("name", sorted(VAE_CONFIGS))
+def test_vae_family_lands_in_jax_seed_band(tmp_path, name):
+    result = run_vae_experiment(VAE_CONFIGS[name](tmp_path), "cpu")
+    lo, hi = _band(*VAE_BANDS[name])
+    assert lo <= result["final_loss"] <= hi, result
+    assert result["final_loss"] < result["first_loss"]
 
 
 def test_popart_resume_continues_exactly(tmp_path):

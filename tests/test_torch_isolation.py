@@ -35,5 +35,11 @@ def test_scan_sees_the_whole_package():
                  "mfvae_tpu_torch/behavior.py", "mfvae_tpu_torch/baselines/vdn.py",
                  "mfvae_tpu_torch/baselines/iql.py", "mfvae_tpu_torch/baselines/qmix.py",
                  "mfvae_tpu_torch/baselines/dyna.py", "mfvae_tpu_torch/baselines/collect_policy.py",
-                 "mfvae_tpu_torch/models/qlearning.py", "mfvae_tpu_torch/envs/wrappers.py", "chip_smoke.py"):
+                 "mfvae_tpu_torch/models/qlearning.py", "mfvae_tpu_torch/envs/wrappers.py",
+                 "mfvae_tpu_torch/utils/native_build.py", "mfvae_tpu_torch/envs/native_engine.py",
+                 "mfvae_tpu_torch/data/host_buffer.py", "mfvae_tpu_torch/envs/host_adapter.py",
+                 "mfvae_tpu_torch/training/host_experiment.py", "mfvae_tpu_torch/data/compat.py",
+                 "mfvae_tpu_torch/data/synthetic.py", "mfvae_tpu_torch/models/vae.py",
+                 "mfvae_tpu_torch/models/factorized.py", "mfvae_tpu_torch/training/vae_trainer.py",
+                 "mfvae_tpu_torch/training/vae_experiment.py", "chip_smoke.py"):
         assert must in names
