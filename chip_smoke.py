@@ -147,9 +147,31 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    param by about lr whatever its grad's size, so a grad that cancels to
    about Adam's eps differs between the two by far more than 1e-6 after
    it.
-22. The kernel list as one JSON line, the card, and the result line.
+22. The tooling of M20 at full width (simple_tag 30/10/20, 40 agents,
+   Σobs 5,660) with model.use_pallas=true, printed beside the card's name
+   and power limit.  run_multiseed on reference_parity.yaml for seeds
+   0-3 and 2 epochs (K1 = K2 = 80, K3 = 160) beside a single Experiment at
+   seed 0: replica 0's losses within rtol 1e-5 of the single run's, the
+   lockstep epoch wall and the peak device memory.  profile_epochs=1 for 3
+   epochs: the trace's device kernels named like K1-K3 must equal the
+   launch counters of the traced epoch (10/10/20); the traced and an
+   untraced epoch's wall.  debug_nans for 1 epoch (10/10/20), its wall
+   beside the guard-off one; then an encoder weight set to NaN must raise
+   FloatingPointError naming the module, and the guard must be off after.
+   remat: one train step in float32 from the same state with and without
+   it, fused and unfused decoders, grads within rtol 1e-5, each step's
+   peak memory.  rng_mode=reference for 1 epoch (10/10/20) and one step by
+   both routes from one generator state (rtol 1e-4).
+   bug_compat_replication.yaml for 2 epochs (20/20/40): the actions
+   stored in epochs 0 and 1 equal, and loss_test equal to the sum of the
+   eval batches' losses over train_num (rtol 1e-5).  Import of a
+   full-width reference-structure tree built in numpy (unfused decoders,
+   float32): the card's mean_call within 1e-5 of the CPU's (over the
+   largest output), export -> import and the numpy pickle round trip
+   bit-equal, a pickle of another class refused.
+23. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-21 print their epoch walls, launches and losses.
+Phases 4-22 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -834,7 +856,7 @@ def host_phase(tmp: str, dev, policy: str) -> dict:
             check(exp.spec.n_agents == 40 and exp.spec.act_dims[0] == 20 and len(exp.spec.groups) == 3,
                   "simple_world_comm is not at the default population")
         ops.reset_launch_counts()
-        result = exp.run()
+        exp.result = result = exp.run()
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         out["launches"][f"host: {label}"] = launches
@@ -974,6 +996,259 @@ def vae_phase(tmp: str, dev) -> dict:
     out["card_vs_cpu"] = worst
     print(f"[21] vae one step, card against CPU: {json.dumps(worst)}", flush=True)
     out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _trace_kernel_counts(trace_dir: Path) -> dict:
+    """Device kernels named like K1-K3 in the one torch.profiler trace
+    under ``trace_dir`` (the Chrome trace's "kernel" events)."""
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"expected one trace file under {trace_dir}, found {[f.name for f in files]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    check(bool(names), f"the trace {files[0].name} holds no device kernel events")
+    return {counter: sum(f"{counter}_kernel" in n for n in names)
+            for counter in ("reparam_kl_fwd", "reparam_kl_bwd", "huber_mean")} | {"all_kernels": len(names)}
+
+
+def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -> dict:
+    """Phase 22: the tooling options of M20 at full width (simple_tag
+    30/10/20, 40 agents, Σobs 5,660) with model.use_pallas=true.  Returns
+    the phase's numbers and the launches of each path."""
+    import collections
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from mfvae_tpu_torch.config import ExperimentConfig, load_config
+    from mfvae_tpu_torch.data.transitions import vae_batch_from_grouped
+    from mfvae_tpu_torch.models import import_reference as ref
+    from mfvae_tpu_torch.models.losses import LossOutputs, elbo_losses
+    from mfvae_tpu_torch.models.mavae import MAVAE, GroupedBatch
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.experiment import Experiment
+    from mfvae_tpu_torch.training.multiseed import run_multiseed
+    from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    print(f"[22] card: {smi}", flush=True)
+    out, launches = {}, {}
+    want1 = {"reparam_kl_fwd": 10, "reparam_kl_bwd": 10, "huber_mean": 20}
+
+    def full_width(cfg):
+        check((cfg.env.name, cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs)
+              == ("MPE_simple_tag_v3", 30, 10, 20), "phase 22 runs simple_tag 30/10/20")
+        return cfg
+
+    # ------------------------------------------------------------ multiseed
+    parity = str(examples / "reference_parity.yaml")
+    exp, single_wall, _ = drive(full_width(load_config(parity)), True, 2, f"{tmp}/ms_single", "22",
+                                "multiseed: the single run at seed 0")
+    check(sum(exp.spec.obs_dims) == 5660 and exp.spec.n_agents == 40, "reference_parity is not 40 agents, Σobs 5,660")
+    single = exp.result
+    del exp
+    cfg = load_config(parity)
+    cfg.model.use_pallas, cfg.train.epoch_num = True, 2
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ms = run_multiseed(cfg, [0, 1, 2, 3], device=dev)
+    torch.cuda.synchronize()
+    launches["tooling: multiseed x4, 2 epochs"] = dict(ops.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    want = {k: 8 * v for k, v in want1.items()}
+    print(f"[22] multiseed seeds {ms['seeds']}: loss_train {ms['loss_train']} loss_test {ms['loss_test']}")
+    print(f"[22] multiseed launches {launches['tooling: multiseed x4, 2 epochs']} (expected {want})")
+    check(launches["tooling: multiseed x4, 2 epochs"] == want, "multiseed: launch counts")
+    for name in ("loss_train", "loss_test"):
+        gap = abs(ms[name][0] - single[name]) / abs(single[name])
+        print(f"[22] multiseed replica 0 {name} {ms[name][0]:.7f} vs the single run {single[name]:.7f}: rel gap {gap:.3e}")
+        check(gap <= 1e-5, f"multiseed replica 0's {name} differs from the single run beyond rtol 1e-5")
+    check(len(set(ms["loss_train"])) == 4, "multiseed: two replicas gave the same loss_train")
+    out["multiseed_epoch_wall_ms"] = [1e3 * w for w in ms["epoch_wall_s"]]
+    out["single_epoch_wall_ms"] = single_wall
+    out["multiseed_peak_gib"] = peak
+    print(f"[22] multiseed x4 lockstep epoch wall ms {[round(w, 3) for w in out['multiseed_epoch_wall_ms']]}")
+    print(f"[22] multiseed x4 per replica-epoch ms {[round(w / 4, 3) for w in out['multiseed_epoch_wall_ms']]}")
+    print(f"[22] single run epoch wall ms {single_wall}")
+    print(f"[22] multiseed x4 peak device memory above the phase's baseline: {peak:.3f} GiB")
+
+    # -------------------------------------------------------- profile_epochs
+    cfg = full_width(load_config(parity, ["train.profile_epochs=1"]))
+    exp, wall, launches["tooling: profile_epochs=1, 3 epochs"] = drive(cfg, True, 3, f"{tmp}/profile", "22",
+                                                                        "profile_epochs=1")
+    counts = _trace_kernel_counts(exp.logger.run_dir / "profile")
+    per_epoch = {k: v // 3 for k, v in launches["tooling: profile_epochs=1, 3 epochs"].items()}
+    print(f"[22] profile_epochs=1: device kernels in the trace of epoch 1 {counts}; counters per epoch {per_epoch}")
+    check({k: counts[k] for k in want1} == want1 == per_epoch,
+          "profile_epochs: the trace's K1-K3 kernels differ from the launch counters of the traced epoch")
+    out["profile_traced_epoch_ms"], out["profile_untraced_epoch_ms"] = wall[1], wall[2]
+    print(f"[22] profile_epochs=1: traced epoch wall {wall[1]:.3f} ms, untraced epoch {wall[2]:.3f} ms")
+    del exp
+
+    # ------------------------------------------------------------ debug_nans
+    cfg = full_width(load_config(parity, ["train.debug_nans=true"]))
+    exp, wall, launches["tooling: debug_nans, 1 epoch"] = drive(cfg, True, 1, f"{tmp}/nans", "22", "debug_nans")
+    out["debug_nans_epoch_ms"] = wall[0]
+    print(f"[22] debug_nans: epoch wall {wall[0]:.3f} ms with the guard, {single_wall[1]:.3f} ms without "
+          f"(the single run's second epoch)")
+    model = exp.carry.train_state.model
+    with torch.no_grad():
+        model.encoders[0].fc0.kernel[0, 0] = float("nan")
+    try:
+        exp.run()
+        fail("debug_nans: a NaN encoder weight raised nothing")
+    except FloatingPointError as e:
+        print(f"[22] debug_nans: the poisoned encoder weight raised FloatingPointError: {e}")
+        check("encoders.0.fc0" in str(e), "debug_nans: the error does not name the poisoned module")
+    check(not torch.is_anomaly_enabled() and ops._NAN_CHECK is None, "debug_nans: the guard outlived the run")
+    del exp, model
+
+    # ----------------------------------------------------------------- remat
+    fused_cfg = load_config(parity, ["model.compute_dtype=float32"])
+    fused_cfg.train.log_dir, fused_cfg.train.checkpoint_dir = f"{tmp}/remat/results", ""
+    exp = Experiment(fused_cfg, dev).build()
+    exp.run_epoch()  # a real buffer to draw the batch from
+    batch = vae_batch_from_grouped(exp.spec, exp.buffer.sample(
+        exp.carry.buffer_state, torch.Generator(device=dev).manual_seed(1)).experience)
+    ops.reset_launch_counts()
+    for fused in (True, False):
+        mcfg = copy.deepcopy(fused_cfg.model)
+        mcfg.fused_decoders = fused
+        models = {}
+        for remat in (False, True):
+            mcfg.remat = remat
+            models[remat] = MAVAE.from_config(mcfg, exp.spec, device=dev)
+        models[True].load_state_dict(models[False].state_dict())
+        grads, peaks = {}, {}
+        for remat, model in models.items():
+            state = create_train_state(model, fused_cfg.train)
+            step = make_train_step(fused_cfg.loss, use_pallas=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch, torch.Generator(device=dev).manual_seed(2))
+            torch.cuda.synchronize()
+            peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            grads[remat] = {n: p.grad.clone() for n, p in model.named_parameters()}
+        worst = max(float(((grads[True][n] - g).abs() / g.abs().max().clamp_min(1e-30)).max())
+                    for n, g in grads[False].items())
+        ok = all(torch.allclose(grads[True][n], g, rtol=1e-5, atol=1e-5 * float(g.abs().max()))
+                 for n, g in grads[False].items())
+        label = "fused" if fused else "unfused"
+        out[f"remat_{label}_peak_mib"] = peaks[True]
+        out[f"plain_{label}_peak_mib"] = peaks[False]
+        print(f"[22] remat, {label} decoders, float32: grads vs without remat, largest gap over the leaf's "
+              f"largest {worst:.3e} (rtol 1e-5)")
+        print(f"[22] remat, {label} decoders: one train step's peak device memory above its start "
+              f"{peaks[True]:.3f} MiB with remat, {peaks[False]:.3f} MiB without")
+        check(ok, f"remat changed the gradients of one train step ({label} decoders)")
+    launches["tooling: remat, 4 train steps"] = dict(ops.LAUNCHES)
+    check(launches["tooling: remat, 4 train steps"] == {k: 4 * v // 10 for k, v in want1.items()},
+          "remat: the 4 train steps with use_pallas did not launch K1-K3 4/4/8 times")
+    del exp, models, batch
+
+    # ---------------------------------------------------- rng_mode=reference
+    cfg = full_width(load_config(parity, ["model.rng_mode=reference"]))
+    exp, _, launches["tooling: rng_mode=reference, 1 epoch"] = drive(cfg, True, 1, f"{tmp}/rng_ref", "22",
+                                                                     "rng_mode=reference")
+    both_routes(exp, "22", "rng_mode=reference")
+    del exp
+
+    # ------------------------------------------------------------- bug_compat
+    cfg = load_config(str(examples / "bug_compat_replication.yaml"))
+    check(cfg.train.bug_compat_rng, "bug_compat_replication.yaml does not set train.bug_compat_rng")
+    exp, _, launches["tooling: bug_compat_replication, 2 epochs"] = drive(
+        full_width(cfg), True, 2, f"{tmp}/bug_compat", "22", "bug_compat_replication")
+    s = cfg.train.sample_num
+    same = all(torch.equal(a[:s], a[s : 2 * s]) for a in exp.carry.buffer_state.data.actions)
+    differ = any(not torch.equal(a[:s], a[s : 2 * s]) for a in exp.carry.buffer_state.data.next_obs)
+    print(f"[22] bug_compat: the actions stored in epochs 0 and 1 equal: {same}; their next_obs differ: {differ}")
+    check(same, "bug_compat: epochs 0 and 1 collected different actions")
+    # the last test phase again: the eval stream starts every epoch from
+    # the snapshot and is drawn only in the test phase
+    exp.streams.rewind()
+    eval_g = exp.streams["eval"]
+    tn, n_test = cfg.train.train_num, cfg.train.test_num
+    state = exp.carry.train_state
+    with torch.no_grad():
+        batch = vae_batch_from_grouped(exp.spec, exp.test_buffer.sample(
+            exp.carry.test_buffer_state, eval_g, batch_size=n_test * cfg.buffer.batch_size).experience)
+        recon_s, recon_r, mu, logvar = state.model(batch.inputs, None, eval_g)
+        per_batch = [elbo_losses(*chunk, cfg.loss) for chunk in zip(*(
+            x.chunk(n_test) for x in (recon_s, recon_r, batch.next_state, batch.rewards, mu, logvar)))]
+    summed = LossOutputs(*(float(sum(xs)) / tn for xs in zip(*per_batch)))
+    got = exp.result["loss_test"]
+    print(f"[22] bug_compat: loss_test {got:.7f}; the sum of the {n_test} eval batches' losses over "
+          f"train_num {tn}: {summed.loss:.7f} (rel {abs(got - summed.loss) / abs(summed.loss):.3e})")
+    check(abs(got - summed.loss) <= 1e-5 * abs(summed.loss), "bug_compat: loss_test is not the sum over train_num")
+    del exp, state, batch, recon_s, recon_r, mu, logvar
+
+    # ---------------------------------------------------------- import/export
+    rng = np.random.default_rng(22)
+    mcfg = ExperimentConfig().model
+    mcfg.fused_decoders, mcfg.compute_dtype = False, "float32"
+    spec = Experiment(load_config(parity), dev).spec
+    n, f, af = spec.n_agents, mcfg.obs_features, mcfg.action_features
+
+    def dense(n_in, n_out):
+        return {"kernel": (rng.standard_normal((n_in, n_out), np.float32) / np.sqrt(n_in)),
+                "bias": rng.standard_normal(n_out, np.float32)}
+
+    tree = {"idx_emb": {"embedding": rng.standard_normal((n, mcfg.idx_features), np.float32)},
+            "reward_linear": dense(n, n)}
+    for a, od, ad in zip(spec.agents, spec.obs_dims, spec.act_dims):
+        w = [mcfg.idx_features + od, *mcfg.encoder_hidden]
+        tree[f"encoders_{a}"] = {f"fc{i}": dense(w[i], w[i + 1]) for i in range(len(w) - 1)}
+        tree[f"encoders_{a}"]["Dense_0"] = dense(w[-1], 2 * f)
+        tree[f"action_encoders_{a}"] = {"embedding": rng.standard_normal((ad, af), np.float32)}
+    for dec, width in (("state_decoder", sum(spec.obs_dims)), ("reward_decoder", n)):
+        w = [n * (f + af), *mcfg.decoder_hidden, width]
+        tree[dec] = {f"Dense_{i}": dense(w[i], w[i + 1]) for i in range(len(w) - 1)}
+    imported = ref.import_reference_params(tree, spec)
+    card = MAVAE.from_config(mcfg, spec, device=dev)
+    card.load_state_dict(imported)
+    cpu = MAVAE.from_config(mcfg, spec, device="cpu")
+    cpu.load_state_dict(imported)
+    b = 128
+    obs = [rng.standard_normal((b, len(i), od), np.float32) for (od, _), i in spec.groups]
+    act = [rng.integers(0, ad, (b, len(i))).astype(np.int32) for (_, ad), i in spec.groups]
+    with torch.no_grad():
+        on_card = card.mean_call(GroupedBatch(tuple(torch.from_numpy(x).to(dev) for x in obs),
+                                              tuple(torch.from_numpy(x).to(dev) for x in act)))
+        on_cpu = cpu.mean_call(GroupedBatch(tuple(map(torch.from_numpy, obs)), tuple(map(torch.from_numpy, act))))
+    for name, x, y in zip(("recon_state", "recon_reward"), on_card, on_cpu):
+        rel = float((x.cpu() - y).abs().max() / y.abs().max())
+        print(f"[22] import: a reference-structure tree at full width ({sum(v.numel() for v in imported.values()):,} "
+              f"params), mean_call {name} {tuple(x.shape)} on the card vs the CPU: max gap over the largest {rel:.3e}")
+        check(rel <= 1e-5 and bool(torch.isfinite(x).all()), f"import: the card's {name} differs from the CPU's")
+    back = ref.import_reference_params(ref.export_reference_params(card, spec), spec)
+    sd = card.state_dict()
+    check(set(back) == set(sd) and all(torch.equal(back[k], sd[k].cpu()) for k in sd),
+          "export -> import is not bit-equal")
+    path = f"{tmp}/model_state.pkl"
+    ref.save_reference_pickle(card, spec, path)
+    loaded = ref.load_reference_pickle(path, spec)
+    check(all(torch.equal(loaded[k], sd[k].cpu()) for k in sd), "the numpy pickle round trip is not bit-equal")
+    print("[22] import: export -> import and the numpy pickle round trip bit-equal")
+    with open(f"{tmp}/refused.pkl", "wb") as fh:
+        pickle.dump({"idx_emb": {"embedding": collections.OrderedDict(a=1)}}, fh)
+    try:
+        ref.load_reference_pickle(f"{tmp}/refused.pkl", spec)
+        fail("a pickle of a non-numpy class was loaded")
+    except ValueError as e:
+        print(f"[22] import: a pickle of a non-numpy class refused: {e}")
+    del card, cpu
+
+    for path_name, n_launch in launches.items():
+        print(f"[22] launches, {path_name}: {n_launch}")
+    for path_name in ("tooling: debug_nans, 1 epoch", "tooling: rng_mode=reference, 1 epoch"):
+        check(launches[path_name] == want1, f"{path_name}: launches {launches[path_name]}, expected {want1}")
+    out["launches"] = launches
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[22] phase wall {out['phase_wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -1195,7 +1470,7 @@ def main() -> None:
         cfg.train.checkpoint_dir = f"{tmp}/ckpt"
         exp = Experiment(cfg).setup()
         ops.reset_launch_counts()
-        result = exp.run()
+        exp.result = result = exp.run()
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         wall = [round(1e3 * s, 3) for s in result["epoch_wall_s"]]
@@ -1609,7 +1884,12 @@ def main() -> None:
         print(f"[21] host and VAE summary: {json.dumps({'host': host_out, 'vae': vae_out})}")
         print(f"[21] phase wall {host_out['phase_wall_s'] + vae_out['phase_wall_s']:.1f} s", flush=True)
 
-    # ------------------------------------------------------ 22. the kernel list
+        # ------------------------------------------------- 22. the M20 tooling
+        tooling_out = tooling_phase(drive, both_routes, examples, tmp, dev, smi)
+        path_launches.update(tooling_out["launches"])
+        print(f"[22] tooling summary: {json.dumps(tooling_out)}")
+
+    # ------------------------------------------------------ 23. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -1627,11 +1907,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[22] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[23] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[22] per-epoch wall ms, {label}: {w}")
-    print(f"[22] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[23] per-epoch wall ms, {label}: {w}")
+    print(f"[23] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

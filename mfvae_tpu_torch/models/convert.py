@@ -62,6 +62,29 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A MAVAE state_dict -> the JAX parameter tree (nested dicts of numpy
+    float32 arrays, without the ``params`` key): the inverse of
+    ``params_from_jax``."""
+    inverse = {v: k for k, v in _LIST_NAME.items()}
+    root: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        path, i = [], 0
+        while i < len(parts):
+            if i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"{inverse.get(parts[i], parts[i])}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = t.detach().cpu().numpy()
+    return root
+
+
 def policy_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX imagination network's tree -> its state_dict in the port."""
     if set(tree) == {"params"}:

@@ -16,6 +16,12 @@ MLP (``ln0..``, ``ln_out``): epsilon 1e-6, statistics in float32 as
 ``E[x²] − E[x]²`` clamped at 0 (flax's fast variance), output in the
 compute dtype.  torch's own ``nn.LayerNorm`` differs in epsilon and in how
 it computes the variance.
+
+``remat=True`` recomputes each Dense of an MLP (the hidden ``fc{i}`` and
+``out``, as flax's ``nn.remat(nn.Dense)`` does) in the backward instead of
+keeping its activations, through ``torch.utils.checkpoint`` (non-reentrant,
+the RNG state preserved, though nothing random runs inside): memory for
+FLOPs, with the same values and gradients.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # the stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -35,6 +42,13 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def _apply(layer: nn.Module, x, remat: bool):
+    """``layer(x)``, recomputed in the backward under ``remat``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, x, use_reentrant=False)
+    return layer(x)
 
 
 def _param(shape, device) -> nn.Parameter:
@@ -89,10 +103,12 @@ class MLP(nn.Module):
     ``layernorm``, a LayerNorm before each of them."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
-                 dtype=torch.float32, device=None, generator=None, layernorm: bool = False):
+                 dtype=torch.float32, device=None, generator=None, layernorm: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.n_hidden = len(hidden)
         self.layernorm = layernorm
+        self.remat = remat
         widths = [in_dim, *hidden]
         for i, h in enumerate(hidden):
             if layernorm:
@@ -106,10 +122,10 @@ class MLP(nn.Module):
         for i in range(self.n_hidden):
             if self.layernorm:
                 x = getattr(self, f"ln{i}")(x)
-            x = torch.relu(getattr(self, f"fc{i}")(x))
+            x = torch.relu(_apply(getattr(self, f"fc{i}"), x, self.remat))
         if self.layernorm:
             x = self.ln_out(x)
-        return self.out(x)
+        return _apply(self.out, x, self.remat)
 
 
 class Embedding(nn.Module):
@@ -155,10 +171,12 @@ class StackedMLP(nn.Module):
     and bias shared by every stack entry, as flax's do."""
 
     def __init__(self, stack: int, in_dim: int, hidden: Sequence[int], out_dim: int,
-                 dtype=torch.float32, device=None, generator=None, layernorm: bool = False):
+                 dtype=torch.float32, device=None, generator=None, layernorm: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.n_hidden = len(hidden)
         self.layernorm = layernorm
+        self.remat = remat
         widths = [in_dim, *hidden]
         for i, h in enumerate(hidden):
             if layernorm:
@@ -172,10 +190,10 @@ class StackedMLP(nn.Module):
         for i in range(self.n_hidden):
             if self.layernorm:
                 x = getattr(self, f"ln{i}")(x)
-            x = torch.relu(getattr(self, f"fc{i}")(x))
+            x = torch.relu(_apply(getattr(self, f"fc{i}"), x, self.remat))
         if self.layernorm:
             x = self.ln_out(x)
-        return self.out(x)
+        return _apply(self.out, x, self.remat)
 
 
 class StackedEmbedding(nn.Module):

@@ -17,8 +17,15 @@ explicit ``eps_shared`` [B, S]; or it draws both from a
 ``torch.Generator``, private first.  Both train-step routes draw the same
 way, so from one generator state they see the same noise.
 
-``rng_mode='reference'`` and ``remat`` raise ``NotImplementedError`` at
-construction, naming their ROADMAP item.
+``rng_mode='reference'`` replays the reference's order of draws
+(``jax_ver/model.py:161``: one key split off per agent, in sequence): eps
+is one [B, F] normal per agent, drawn in sequence from the generator, and
+draw i is row i of the *grouped* [B, A, F] tensor, as the JAX model gives
+its i-th split key to grouped row i.  Both train-step routes take it
+through ``_eps``, so the kernels K1/K2 see the same noise as the plain
+route.  ``remat`` recomputes the Denses of the encoders, the continuous
+action encoders and the decoders in the backward (``layers.py``), where
+the JAX model wraps them in ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -152,18 +159,6 @@ def state_to_grouped(spec: AgentSpec, state: torch.Tensor) -> Tuple[torch.Tensor
 
 
 
-def _refuse_unported(cfg: ModelConfig) -> None:
-    off_path = {
-        "rng_mode=reference": cfg.rng_mode != "vectorized",
-        "remat": cfg.remat,
-    }
-    for name, on in off_path.items():
-        if on:
-            raise NotImplementedError(
-                f"model.{name} is not ported to the PyTorch package yet (ROADMAP M20)"
-            )
-
-
 class MAVAE(nn.Module):
     """Public calls return float32 outputs in agent order: ``forward`` ->
     (recon_state [B, Σobs], recon_reward [B, A] — logits [B, A, K] under
@@ -172,7 +167,8 @@ class MAVAE(nn.Module):
     def __init__(self, spec: AgentSpec, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _refuse_unported(cfg)
+        if cfg.rng_mode not in ("vectorized", "reference"):
+            raise ValueError(f"unknown rng_mode {cfg.rng_mode!r}")
         if cfg.reward_head_init not in ("lecun", "popart"):
             raise ValueError(f"unknown reward_head_init {cfg.reward_head_init!r}")
         if cfg.latent_structure not in ("private", "shared_private"):
@@ -200,21 +196,23 @@ class MAVAE(nn.Module):
         self.reward_bins = cfg.reward_bins
         self.pred_state_reward = cfg.reward_head_input == "pred_state"
         self.action_delta_head = cfg.action_delta_head
+        self.reference_rng = cfg.rng_mode == "reference"
         self.dtype = dtype = DTYPES[cfg.compute_dtype]
         n, af, sum_obs = spec.n_agents, cfg.action_features, sum(spec.obs_dims)
         kw = dict(dtype=dtype, device=device, generator=generator)
+        rkw = dict(kw, remat=cfg.remat)  # the JAX model's nn.remat sites
         self.idx_emb = Embedding(n, cfg.idx_features, **kw)
         self.encoders = nn.ModuleList()
         self.action_encoders = nn.ModuleList()
         enc_out = 2 * f + 2 * s + self.det_features
         for (obs_dim, act_dim), idxs in spec.groups:
             self.encoders.append(
-                StackedMLP(len(idxs), cfg.idx_features + obs_dim, cfg.encoder_hidden, enc_out, **kw)
+                StackedMLP(len(idxs), cfg.idx_features + obs_dim, cfg.encoder_hidden, enc_out, **rkw)
             )
             if self.discrete_act:
                 enc = StackedEmbedding(len(idxs), act_dim, af, **kw)
             else:
-                enc = StackedMLP(len(idxs), act_dim, cfg.action_encoder_hidden, af, **kw)
+                enc = StackedMLP(len(idxs), act_dim, cfg.action_encoder_hidden, af, **rkw)
             self.action_encoders.append(enc)
         if self.action_delta_head:
             # zero-init: the pathway starts as an exact no-op
@@ -229,15 +227,15 @@ class MAVAE(nn.Module):
         reward_out = n * cfg.reward_bins if self.twohot else n
         if self.fused_decoders:
             # state + reward decoders share hidden widths: one two-stack trunk
-            self.decoder_trunk = StackedMLP(2, dec_in, hidden[:-1], hidden[-1], layernorm=ln, **kw)
+            self.decoder_trunk = StackedMLP(2, dec_in, hidden[:-1], hidden[-1], layernorm=ln, **rkw)
             self.state_head = Dense(hidden[-1], sum_obs, **kw)
             self.reward_head = Dense(hidden[-1], reward_out, **kw)
         else:
-            self.state_decoder = MLP(dec_in, hidden, sum_obs, layernorm=ln, **kw)
+            self.state_decoder = MLP(dec_in, hidden, sum_obs, layernorm=ln, **rkw)
             r_in = dec_in
             if self.pred_state_reward:
                 r_in = sum_obs + n * af + (sum_obs if self._needs_base else 0)
-            self.reward_decoder = MLP(r_in, hidden, reward_out, layernorm=ln, **kw)
+            self.reward_decoder = MLP(r_in, hidden, reward_out, layernorm=ln, **rkw)
         if not self.twohot:
             # PopArt output head: all-ones kernel under 'popart', lecun
             # otherwise; the two-hot head has none (as the JAX tree)
@@ -306,8 +304,13 @@ class MAVAE(nn.Module):
         return torch.randn(tuple(shape), generator=generator, device=generator.device)
 
     def _eps(self, generator: Optional[torch.Generator], shape, eps=None) -> torch.Tensor:
-        """The private noise for ``shape`` = [B, A, F]."""
-        return self._draw(generator, shape, eps, "eps")
+        """The private noise for ``shape`` = [B, A, F] (grouped order): one
+        draw, or under ``rng_mode='reference'`` one [B, F] draw per agent
+        in sequence, draw i to grouped row i."""
+        if eps is not None or not self.reference_rng:
+            return self._draw(generator, shape, eps, "eps")
+        b, a, f = shape
+        return torch.stack([self._draw(generator, (b, f), None, "eps") for _ in range(a)], dim=1)
 
     @staticmethod
     def reparameterize(mu, logvar, eps):

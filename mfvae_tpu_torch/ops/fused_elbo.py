@@ -39,6 +39,10 @@ input's type, as ``_huber_bwd`` does.
 
 Routing: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.  Each launch adds one to ``LAUNCHES``.
+
+Under ``train.debug_nans`` (``utils/debug_nans.py``) the wrappers hand
+each kernel's outputs, or its plain version's, to the check set by
+``set_nan_check``; with no check set they read nothing back.
 """
 
 from __future__ import annotations
@@ -63,11 +67,23 @@ _HUBER_LOADS = 2  # kHuberLoads in fused_elbo.cu: 16-byte loads per tensor per t
 HUBER_SINGLE_BLOCK_MAX = 8192
 _LIB = None
 _HUBER_WORKSPACES: dict = {}  # (device index, stream handle) -> int32 tensor
+_NAN_CHECK = None  # (where, *outputs) -> None, raising on a NaN; None: off
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def set_nan_check(check) -> None:
+    """Install ``check(where, *outputs)`` on K1-K3's outputs (None: off)."""
+    global _NAN_CHECK
+    _NAN_CHECK = check
+
+
+def _nan_check(kernel: str, on_cuda: bool, *outputs) -> None:
+    if _NAN_CHECK is not None:
+        _NAN_CHECK(f"{kernel} ({'kernel' if on_cuda else 'plain version'})", *outputs)
 
 
 def _lib() -> ctypes.CDLL:
@@ -259,7 +275,9 @@ class _FusedReparamKL(torch.autograd.Function):
     def forward(ctx, mu, logvar, eps):
         f = mu.shape[-1]
         args = (mu.reshape(-1, f), logvar.reshape(-1, f), eps.reshape(-1, f))
-        z, kl = _reparam_kl_fwd_cuda(*args) if _on_cuda(mu) else _fwd_rows_plain(*args)
+        cuda = _on_cuda(mu)
+        z, kl = _reparam_kl_fwd_cuda(*args) if cuda else _fwd_rows_plain(*args)
+        _nan_check("K1 reparam_kl_fwd", cuda, z, kl)
         ctx.save_for_backward(mu, logvar, eps)
         return z.reshape(mu.shape), kl.reshape(mu.shape[:-1])
 
@@ -273,7 +291,9 @@ class _FusedReparamKL(torch.autograd.Function):
             mu.reshape(-1, f), logvar.reshape(-1, f), eps.reshape(-1, f),
             gz.contiguous().reshape(-1, f), gkl.contiguous().reshape(-1),
         )
-        dmu, dlv = _reparam_kl_bwd_cuda(*args) if _on_cuda(mu) else _bwd_rows_plain(*args)
+        cuda = _on_cuda(mu)
+        dmu, dlv = _reparam_kl_bwd_cuda(*args) if cuda else _bwd_rows_plain(*args)
+        _nan_check("K2 reparam_kl_bwd", cuda, dmu, dlv)
         return dmu.reshape(mu.shape), dlv.reshape(mu.shape), None
 
 
@@ -302,9 +322,10 @@ class _HuberMean(torch.autograd.Function):
     def forward(ctx, x, y, delta):
         ctx.save_for_backward(x, y)
         ctx.delta = delta
-        if _on_cuda(x):
-            return _huber_mean_cuda(x, y, delta)
-        return _huber_mean_plain(x, y, delta)
+        cuda = _on_cuda(x)
+        out = _huber_mean_cuda(x, y, delta) if cuda else _huber_mean_plain(x, y, delta)
+        _nan_check("K3 huber_mean", cuda, out)
+        return out
 
     @staticmethod
     def backward(ctx, g):

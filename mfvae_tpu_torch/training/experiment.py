@@ -10,10 +10,20 @@ tree stays field-for-field equal to the JAX package's.  Without a card,
 
 ``run`` checkpoints and returns at the next epoch boundary after SIGTERM or
 SIGINT; ``run_resilient`` rebuilds and resumes after a failure.
+
+The tooling options: ``train.profile_epochs`` traces epochs
+[start+1, start+1+profile_epochs) into ``<run_dir>/profile``, or, with
+``train.epochs_per_dispatch`` K > 1, the first K epochs from the start
+epoch itself, as the JAX package traces its first dispatched chunk
+(``utils/profiling.py``).  ``train.debug_nans`` runs the epochs under
+``utils/debug_nans.NanGuard``, on for the run and off again after it.
+``train.bug_compat_rng`` starts every epoch from the streams' state at the
+start of epoch 0 (``rng.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import threading
 import time
@@ -34,12 +44,15 @@ from mfvae_tpu_torch.training.popart import PopArtState
 from mfvae_tpu_torch.training.trainer import (
     EnvCarry,
     EpochCarry,
+    EpochMetrics,
     create_train_state,
     init_policy_carry,
     make_epoch_fn,
     shard_buffer,
     stacked_to_grouped,
 )
+from mfvae_tpu_torch.utils.debug_nans import NanGuard
+from mfvae_tpu_torch.utils.profiling import trace
 
 
 def resolve_device(device) -> torch.device:
@@ -60,24 +73,15 @@ def build_spec(env) -> AgentSpec:
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    t = cfg.train
-    off_path = {
-        "mesh.enable": (cfg.mesh.enable, "M17"),
-        "train.profile_epochs": (t.profile_epochs > 0, "M20"),
-        "train.debug_nans": (t.debug_nans, "M20"),
-        "train.bug_compat_rng": (t.bug_compat_rng, "M20"),
-    }
-    for name, (on, item) in off_path.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported to the PyTorch package yet (ROADMAP {item})"
-            )
-    # model.rng_mode=reference and model.remat are refused where they are
-    # used (MAVAE), the vdn: collect policies where the policy is resolved
-    # (trainer.py).  fused_epoch, epochs_per_dispatch and eval_vmap shape
-    # only the JAX package's XLA program and change nothing here, except
-    # that setup refuses epochs_per_dispatch > 1 without the fused epoch,
-    # as the JAX package does
+    if cfg.mesh.enable:
+        raise NotImplementedError(
+            "mesh.enable is not ported to the PyTorch package yet (ROADMAP M17)"
+        )
+    # the vdn: collect policies are resolved in trainer.py.  fused_epoch,
+    # epochs_per_dispatch and eval_vmap shape only the JAX package's XLA
+    # program and change nothing here, except that setup refuses
+    # epochs_per_dispatch > 1 without the fused epoch, as the JAX package
+    # does, and that epochs_per_dispatch sets profile_epochs' window
 
 
 class Experiment:
@@ -105,7 +109,7 @@ class Experiment:
             # the batched epoch: one buffer shard per env
             self.buffer = shard_buffer(self.buffer, cfg)
         self.test_buffer = self.buffer
-        self.streams = make_streams(cfg.train.seed, device=self.device)
+        self.streams = make_streams(cfg.train.seed, device=self.device, bug_compat=cfg.train.bug_compat_rng)
         self.logger: Optional[MetricsLogger] = None
         self.ckpt = None
         self._epoch_fn = None
@@ -114,6 +118,26 @@ class Experiment:
 
     # ------------------------------------------------------------ lifecycle
     def setup(self):
+        """``build``, then the run's logger, config snapshot and checkpoint
+        manager, and the resume when ``train.resume`` is set."""
+        cfg = self.cfg
+        self.build()
+        self.logger = MetricsLogger(cfg.train.log_dir, cfg.train.run_name)
+        # the resolved config beside the run's metrics reproduces the run
+        save_config(cfg, str(self.logger.run_dir / "config.yaml"))
+        self.ckpt = (
+            CheckpointManager(cfg.train.checkpoint_dir)
+            if cfg.train.checkpoint_dir
+            else NullCheckpointManager()
+        )
+        if cfg.train.resume:
+            self._try_resume()
+        return self
+
+    def build(self):
+        """The env's first state, the model, the buffers and the epoch
+        program: the carry every epoch advances, drawn from the seed's
+        streams alone (``multiseed`` builds its replicas so)."""
         cfg = self.cfg
         if cfg.train.n_envs <= 1 and not cfg.train.fused_epoch and cfg.train.epochs_per_dispatch > 1:
             raise ValueError(
@@ -153,17 +177,27 @@ class Experiment:
         self._epoch_fn = make_epoch_fn(
             self.env, self.spec, self.buffer, self.test_buffer, cfg, self.streams
         )
-        self.logger = MetricsLogger(cfg.train.log_dir, cfg.train.run_name)
-        # the resolved config beside the run's metrics reproduces the run
-        save_config(cfg, str(self.logger.run_dir / "config.yaml"))
-        self.ckpt = (
-            CheckpointManager(cfg.train.checkpoint_dir)
-            if cfg.train.checkpoint_dir
-            else NullCheckpointManager()
-        )
-        if cfg.train.resume:
-            self._try_resume()
+        # bug_compat_rng: every epoch starts from the streams' state here,
+        # which follows from the seed alone, so a resume rebuilds it
+        self.streams.freeze()
         return self
+
+    def run_epoch(self) -> EpochMetrics:
+        """One epoch on the carry; its metrics stay on the device."""
+        self.streams.rewind()
+        self.carry, metrics = self._epoch_fn(self.carry)
+        return metrics
+
+    def _profile_window(self) -> Optional[range]:
+        """The epochs ``train.profile_epochs`` traces, as the JAX package's
+        two loops do: [start+1, start+1+profile_epochs) epoch by epoch;
+        with epochs_per_dispatch K > 1 its first chunk, [start, start+K)."""
+        t = self.cfg.train
+        if not t.profile_epochs or self.start_epoch >= t.epoch_num:
+            return None
+        if t.epochs_per_dispatch > 1:
+            return range(self.start_epoch, min(self.start_epoch + t.epochs_per_dispatch, t.epoch_num))
+        return range(self.start_epoch + 1, self.start_epoch + 1 + t.profile_epochs)
 
     def _example_transition(self, obs, env_state, lead=()) -> GroupedTransition:
         """A transition of the buffer's layout, with the env axis ``lead``."""
@@ -251,6 +285,9 @@ class Experiment:
         seconds of each epoch (``epoch_wall_s``, each ending in a device
         sync when the epoch's losses are read).
 
+        The tooling options (``train.profile_epochs``, ``debug_nans``,
+        ``bug_compat_rng``) act here; see the module docstring.
+
         Preemption: on the main thread, SIGTERM and SIGINT only set a flag
         for the run; at the next epoch boundary the full payload is saved
         and the run returns with ``preempted_at`` (the last epoch trained),
@@ -268,22 +305,30 @@ class Experiment:
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
                 old_handlers[sig] = signal.signal(sig, lambda signum, frame: preempted.append(signum))
+        window = self._profile_window()
+        tracing = contextlib.ExitStack()
         try:
-            for epoch in range(self.start_epoch, cfg.train.epoch_num):
-                t_epoch = time.perf_counter()
-                self.carry, metrics = self._epoch_fn(self.carry)
-                train = type(metrics.train)(*(float(x) for x in metrics.train))
-                test = type(metrics.test)(*(float(x) for x in metrics.test))
-                epoch_wall.append(time.perf_counter() - t_epoch)
-                self.logger.losses(train, epoch, "Train")
-                self.logger.losses(test, epoch, "Test")
-                last = {"epoch": epoch, "loss_train": train.loss, "loss_test": test.loss}
-                if cfg.train.checkpoint_every and (epoch + 1) % cfg.train.checkpoint_every == 0:
-                    self._save(epoch)
-                if preempted:
-                    print(f"preempted: checkpointing epoch {epoch}, exiting cleanly", flush=True)
-                    break
+            with NanGuard(self.carry.train_state.model) if cfg.train.debug_nans else contextlib.nullcontext():
+                for epoch in range(self.start_epoch, cfg.train.epoch_num):
+                    if window is not None and epoch == window.start:
+                        tracing.enter_context(trace(str(self.logger.run_dir / "profile")))
+                    t_epoch = time.perf_counter()
+                    metrics = self.run_epoch()
+                    train = type(metrics.train)(*(float(x) for x in metrics.train))
+                    test = type(metrics.test)(*(float(x) for x in metrics.test))
+                    epoch_wall.append(time.perf_counter() - t_epoch)
+                    if window is not None and epoch == window.stop - 1:
+                        tracing.close()  # waits for the device, then writes the trace
+                    self.logger.losses(train, epoch, "Train")
+                    self.logger.losses(test, epoch, "Test")
+                    last = {"epoch": epoch, "loss_train": train.loss, "loss_test": test.loss}
+                    if cfg.train.checkpoint_every and (epoch + 1) % cfg.train.checkpoint_every == 0:
+                        self._save(epoch)
+                    if preempted:
+                        print(f"preempted: checkpointing epoch {epoch}, exiting cleanly", flush=True)
+                        break
         finally:
+            tracing.close()
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
         if epoch >= 0 and self.ckpt.latest_step() != epoch:

@@ -487,12 +487,21 @@ def make_phase_fns(
             outs.append(o)
         return train_state, LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
 
+    # the reference divides the test phase's sums by train_num
+    # (jax_ver/main.py:228-231); the JAX package keeps that under
+    # bug_compat_rng on its single-env test phase
+    test_scale = cfg.train.test_num / cfg.train.train_num if cfg.train.bug_compat_rng and E == 1 else None
+
     def test_phase(train_state: TrainState, buf_state: BufferState) -> LossOutputs:
         # all test_num eval batches as one forward (see the module docstring)
         n = cfg.train.test_num * test_buffer.sample_batch_size
         batch = test_buffer.sample(buf_state, streams["eval"], batch_size=n)
         vb = vae_batch_from_grouped(spec, batch.experience)
-        return test_step(train_state, vb, streams["eval"], n_batches=cfg.train.test_num)
+        out = test_step(train_state, vb, streams["eval"], n_batches=cfg.train.test_num)
+        if test_scale is not None:
+            # the sum of the test_num per-batch means over train_num
+            out = LossOutputs(*(x * test_scale for x in out))
+        return out
 
     return collect, train_phase, test_phase
 

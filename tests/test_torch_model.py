@@ -104,16 +104,6 @@ def test_agent_order_concat_round_trip():
         torch.testing.assert_close(a, b)
 
 
-@pytest.mark.parametrize("field,value", [("rng_mode", "reference"), ("remat", True)])
-def test_unported_options_refused(field, value):
-    cfg = ModelConfig(**SMALL)
-    setattr(cfg, field, value)
-    spec = AgentSpec.from_dicts(("a",), {"a": 3}, {"a": 5})
-    with pytest.raises(NotImplementedError, match="M20"):
-        MAVAE.from_config(cfg, spec, device="cpu")
-
-
-
 # ------------------------------------------------------------- bf16 forward
 BF16_AGENTS = tuple(f"adversary_{i}" for i in range(6)) + tuple(f"agent_{i}" for i in range(3))
 BF16_OBS = {a: (10 if a.startswith("adversary") else 8) for a in BF16_AGENTS}
