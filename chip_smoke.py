@@ -169,9 +169,31 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    float32): the card's mean_call within 1e-5 of the CPU's (over the
    largest output), export -> import and the numpy pickle round trip
    bit-equal, a pickle of another class refused.
-23. The kernel list as one JSON line, the card, and the result line.
+23. (No phase: the kernel list moved to 25.)
+24. Scale-out at full width (simple_tag 30/10/20, 40 agents), printed
+   beside the card's name and power limit.  (a) examples/data_parallel.yaml
+   (8 envs, batch 4,096) with model.use_pallas=true for 2 epochs through
+   Experiment at world size 1 over NCCL (launches K1 = K2 = 20, K3 = 40),
+   its losses, every train step's loss and every epoch's eval bit-equal to
+   the same config with mesh.enable=false; the epoch walls and the peak
+   device memory above the phase's start.  (b) Two ranks sharing the card
+   over gloo, one spawned process each, the kernels built once before:
+   data parallel (mesh.data_axis=2, 4 envs a rank, 1 epoch, 10/10/20 per
+   rank), each loss within rtol 2e-3 of (a)'s first epoch (the first train
+   step's gap printed on its own) and the parameters bit-equal across the
+   ranks; tensor parallel (mesh.model_axis=2) one float32 train step with
+   TF32 off, its loss within rtol 1e-5 and every gradient within rtol 1e-5
+   (atol 1e-5 of its leaf's largest) of the unsharded step, then one bf16
+   epoch with the kernels (10/10/20 per rank), each loss within rtol 2e-3
+   of (a)'s first epoch; the pipeline (pipelined_mlp,
+   2 stages, 4 microbatches) through a 40-agent model with a uniform
+   1,024-wide decoder body, its loss and gradients within atol 1e-5 of the
+   unpipelined model.  The collectives that gloo refuses for CUDA tensors,
+   staged through pinned host memory, are printed.  Each rank and each
+   process group has a timeout; a rank that dies or hangs fails the script.
+25. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-22 print their epoch walls, launches and losses.
+Phases 4-22 and 24 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -1252,6 +1274,379 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
     return out
 
 
+# ----------------------------------------------------------------- 24. scale-out
+SCALEOUT_TIMEOUT_S = 600  # the two ranks of phase 24 together, and each collective
+
+
+def _record_train_steps(sink: list):
+    """Wrap ``trainer.make_train_step`` so every train step's loss lands in
+    ``sink``; returns the function that undoes it."""
+    from mfvae_tpu_torch.training import trainer
+
+    orig = trainer.make_train_step
+
+    def make(*a, **k):
+        step = orig(*a, **k)
+
+        def recorded(state, batch, *r, **kw):
+            state, o = step(state, batch, *r, **kw)
+            sink.append(o.loss)
+            return state, o
+
+        return recorded
+
+    trainer.make_train_step = make
+    return lambda: setattr(trainer, "make_train_step", orig)
+
+
+def _dp_config(examples: Path, tmp: str, epochs: int, **over):
+    """examples/data_parallel.yaml with the kernels, at full width."""
+    from mfvae_tpu_torch.config import load_config
+
+    cfg = load_config(str(examples / "data_parallel.yaml"))
+    check((cfg.env.name, cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs,
+           cfg.train.n_envs, cfg.buffer.batch_size) == ("MPE_simple_tag_v3", 30, 10, 20, 8, 4096),
+          "phase 24 runs data_parallel.yaml: simple_tag 30/10/20, 8 envs, batch 4,096")
+    cfg.model.use_pallas = True
+    cfg.train.epoch_num = epochs
+    cfg.train.log_dir, cfg.train.checkpoint_dir = f"{tmp}/results", ""
+    for key, value in over.items():
+        section, name = key.split("__")
+        setattr(getattr(cfg, section), name, value)
+    return cfg
+
+
+def _fixed_step(exp) -> dict:
+    """One float32 train step from the state after setup on a batch and eps
+    drawn from seed 11 on the card (grad_clip 0): the loss and the whole
+    gradients on the CPU (split parameters gathered over 'model')."""
+    import torch
+
+    from mfvae_tpu_torch.data.transitions import VaeBatch
+    from mfvae_tpu_torch.models.mavae import GroupedBatch
+    from mfvae_tpu_torch.parallel import tp
+    from mfvae_tpu_torch.training.trainer import make_train_step
+
+    cfg, spec, dev = exp.cfg, exp.spec, exp.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    b = cfg.buffer.batch_size
+    inputs = GroupedBatch(
+        obs=tuple(torch.randn(b, len(i), od, generator=g, device=dev) for (od, _), i in spec.groups),
+        actions=tuple(torch.randint(0, 5, (b, len(i)), generator=g, device=dev, dtype=torch.int32)
+                      for _, i in spec.groups),
+    )
+    batch = VaeBatch(inputs=inputs, next_state=torch.randn(b, sum(spec.obs_dims), generator=g, device=dev),
+                     rewards=torch.randn(b, spec.n_agents, generator=g, device=dev))
+    eps = torch.randn(b, spec.n_agents, cfg.model.obs_features, generator=g, device=dev)
+    state = exp.carry.train_state
+    state.grad_clip = 0.0
+    _, o = make_train_step(cfg.loss, cfg.train.mode, use_pallas=cfg.model.use_pallas, mesh=exp.mesh)(
+        state, batch, None, eps)
+    dims = tp.split_dims(state.model)
+    grads = {n: (p.grad if d is None else exp.mesh.all_gather(p.grad, "model", d)).cpu()
+             for (n, p), d in zip(state.model.named_parameters(), dims)}
+    return {"loss": float(o.loss), "grads": grads}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _pp_check(mesh, dev) -> dict:
+    """simple_tag 30/10/20 with unfused decoders of a uniform 1,024-wide
+    body (fc0, fc1-fc4 over the 2 stages, out), float32: the loss and every
+    gradient of the model with both decoders through ``pipelined_mlp``
+    (4 microbatches) against the unpipelined forward on the same eps."""
+    import torch
+
+    from mfvae_tpu_torch.config import LossConfig, ModelConfig
+    from mfvae_tpu_torch.envs.mpe import make
+    from mfvae_tpu_torch.models.losses import elbo_losses
+    from mfvae_tpu_torch.models.mavae import MAVAE, GroupedBatch
+    from mfvae_tpu_torch.parallel.pp import pipelined_mlp
+    from mfvae_tpu_torch.training.experiment import build_spec
+
+    spec = build_spec(make("MPE_simple_tag_v3", device=dev, num_good_agents=10, num_adversaries=30, num_obs=20))
+    mc = ModelConfig(compute_dtype="float32", fused_decoders=False, decoder_hidden=(1024,) * 5)
+    model = MAVAE.from_config(mc, spec, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    g = torch.Generator(device=dev).manual_seed(4)
+    b = 256
+    batch = GroupedBatch(
+        obs=tuple(torch.randn(b, len(i), od, generator=g, device=dev) for (od, _), i in spec.groups),
+        actions=tuple(torch.randint(0, 5, (b, len(i)), generator=g, device=dev) for _, i in spec.groups))
+    nxt = torch.randn(b, sum(spec.obs_dims), generator=g, device=dev)
+    rew = torch.randn(b, spec.n_agents, generator=g, device=dev)
+    eps = torch.randn(b, spec.n_agents, mc.obs_features, generator=g, device=dev)
+
+    def layers(mlp):
+        names = [f"fc{i}" for i in range(mlp.n_hidden)] + ["out"]
+        return {n: {"kernel": getattr(mlp, n).kernel, "bias": getattr(mlp, n).bias} for n in names}
+
+    def piped():
+        mu, lv, aemb, _, _ = model.encode(batch)
+        z = model.reparameterize(mu, lv, eps)
+        mu, lv, aemb, z = model._to_agent_order(mu, lv, aemb, z)
+        flat = torch.cat([z.reshape(b, -1), aemb.reshape(b, -1)], dim=-1)
+        rs = pipelined_mlp(layers(model.state_decoder), flat, mesh, 4)
+        rr = model.reward_linear(pipelined_mlp(layers(model.reward_decoder), flat, mesh, 4))
+        return rs, rr, mu.reshape(b, -1), lv.reshape(b, -1)
+
+    out = {}
+    for name, fwd in (("pipelined", piped), ("unpipelined", lambda: model(batch, eps=eps))):
+        model.zero_grad(set_to_none=True)
+        rs, rr, mu, lv = fwd()
+        loss = elbo_losses(rs, rr, nxt, rew, mu, lv, LossConfig()).loss
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+    (lp, gp), (lu, gu) = out["pipelined"], out["unpipelined"]
+    err = max(float((gp[n] - gu[n]).abs().max()) for n in gu)
+    return {"loss": lp, "loss_unpipelined": lu, "loss_err": abs(lp - lu), "grad_max_abs_err": err,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def _scaleout_rank(rank: int, port: int, out_dir: str, examples: str) -> None:
+    """One of phase 24's two ranks sharing the card over gloo: the
+    data-parallel epoch, the tensor-parallel step and epoch, the pipeline.
+    Writes its numbers to ``out_dir/rank<r>.json`` (rank 0 also its whole
+    float32 gradients); any failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.parallel.mesh import init_distributed
+    from mfvae_tpu_torch.parallel.pp import make_pipe_mesh
+    from mfvae_tpu_torch.training.experiment import Experiment
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    examples = Path(examples)
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout_s=SCALEOUT_TIMEOUT_S)
+    res = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
+    staged = set()
+    try:
+        # data parallel: 4 envs a rank, the kernels on each rank's rows
+        steps = []
+        undo = _record_train_steps(steps)
+        exp = Experiment(_dp_config(examples, f"{out_dir}/dp{rank}", 1, mesh__data_axis=2)).setup()
+        undo()
+        check(exp.mesh.shape == {"data": 2, "model": 1} and exp.carry.env.obs[0].shape[0] == 4,
+              f"rank {rank}: mesh {exp.mesh.shape}, {exp.carry.env.obs[0].shape[0]} envs")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = exp.run()
+        torch.cuda.synchronize()
+        res["dp"] = {"launches": dict(ops.LAUNCHES), "loss_train": r["loss_train"], "loss_test": r["loss_test"],
+                     "steps": [float(x) for x in steps], "epoch_wall_ms": [1e3 * s for s in r["epoch_wall_s"]],
+                     "params_sha256": _digest(exp.carry.train_state.model.parameters()),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        staged |= exp.mesh.staged
+        del exp
+        torch.cuda.empty_cache()
+
+        # tensor parallel: one float32 step, then a bf16 epoch with the kernels
+        exp = Experiment(_dp_config(examples, f"{out_dir}/tp{rank}", 1, model__compute_dtype="float32",
+                                    mesh__model_axis=2)).setup()
+        check(exp.mesh.shape == {"data": 1, "model": 2}, f"rank {rank}: mesh {exp.mesh.shape}")
+        step = _fixed_step(exp)
+        res["tp_step"] = {"loss": step["loss"], "grads_sha256": _digest(step["grads"][n] for n in sorted(step["grads"])),
+                          "split": sum(d is not None for d in exp.carry.train_state.model.tp_dims.values())}
+        if rank == 0:
+            torch.save(step["grads"], f"{out_dir}/tp_grads.pt")
+        staged |= exp.mesh.staged
+        del exp, step
+        torch.cuda.empty_cache()
+        exp = Experiment(_dp_config(examples, f"{out_dir}/tpe{rank}", 1, mesh__model_axis=2)).setup()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = exp.run()
+        torch.cuda.synchronize()
+        res["tp"] = {"launches": dict(ops.LAUNCHES), "loss_train": r["loss_train"], "loss_test": r["loss_test"],
+                     "epoch_wall_ms": [1e3 * s for s in r["epoch_wall_s"]],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        staged |= exp.mesh.staged
+        del exp
+        torch.cuda.empty_cache()
+
+        # the pipeline: 2 stages
+        mesh = make_pipe_mesh(2)
+        res["pp"] = _pp_check(mesh, torch.device("cuda"))
+        staged |= mesh.staged
+        res["staged"] = sorted(staged)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
+    """Phase 24: scale-out at full width (simple_tag 30/10/20, 40 agents).
+    (a) examples/data_parallel.yaml through Experiment at world size 1 over
+    NCCL, against the same config with mesh.enable=false; (b) two ranks
+    sharing the card over gloo, spawned here.  Returns the phase's numbers
+    and the launches of each path."""
+    import gc
+    import multiprocessing
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.parallel.mesh import init_distributed
+    from mfvae_tpu_torch.training.experiment import Experiment
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def epoch_losses(exp) -> list:
+        rows = [json.loads(line) for line in open(exp.logger.run_dir / "metrics.jsonl")]
+        return [[r["value"] for r in rows if r["tag"] == tag] for tag in ("Loss/Train", "Loss/Test")]
+
+    t_phase = time.perf_counter()
+    print(f"[24] card: {smi}", flush=True)
+    out, launches = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+
+    # (a) world size 1 over NCCL, then the same config unsharded
+    runs = {}
+    for enable in (True, False):
+        if enable:
+            init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", timeout_s=SCALEOUT_TIMEOUT_S)
+        steps = []
+        undo = _record_train_steps(steps)
+        cfg = _dp_config(examples, f"{tmp}/dp1_{enable}", 2, mesh__enable=enable)
+        exp = Experiment(cfg).setup()
+        undo()
+        check((exp.mesh is not None) == enable, f"mesh.enable={enable}: mesh {exp.mesh}")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = exp.run()
+        torch.cuda.synchronize()
+        name = "world 1 (NCCL)" if enable else "unsharded"
+        runs[name] = {
+            "launches": dict(ops.LAUNCHES), "losses": epoch_losses(exp), "steps": [float(x) for x in steps],
+            "epoch_wall_ms": [round(1e3 * s, 3) for s in r["epoch_wall_s"]],
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+        }
+        if enable:
+            check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "world 1 is not an NCCL group")
+            dist.destroy_process_group()
+        print(f"[24] data_parallel.yaml, {name}, 2 epochs: losses {runs[name]['losses']} "
+              f"epoch wall ms {runs[name]['epoch_wall_ms']} launches {runs[name]['launches']} "
+              f"peak above the phase's start {runs[name]['peak_gib']:.3f} GiB", flush=True)
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    w1, plain = runs["world 1 (NCCL)"], runs["unsharded"]
+    want2 = {"reparam_kl_fwd": 20, "reparam_kl_bwd": 20, "huber_mean": 40}
+    check(w1["launches"] == want2 and plain["launches"] == want2,
+          f"data_parallel.yaml launches {w1['launches']}, {plain['launches']}, expected {want2}")
+    check(w1["losses"] == plain["losses"] and w1["steps"] == plain["steps"],
+          "world 1 over NCCL is not bit-equal to the unsharded batched run")
+    launches["data_parallel world 1 (NCCL)"] = w1["launches"]
+    out["world1"] = runs
+
+    # the reference of the tensor-parallel float32 step
+    exp = Experiment(_dp_config(examples, f"{tmp}/ref_step", 1, model__compute_dtype="float32",
+                                mesh__enable=False)).setup()
+    ref_step = _fixed_step(exp)
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the card over gloo, each in its own process
+    ctx = multiprocessing.get_context("spawn")
+    rank_dir = f"{tmp}/ranks"
+    Path(rank_dir).mkdir()
+    port = free_port()
+    t_ranks = time.perf_counter()
+    procs = [ctx.Process(target=_scaleout_rank, args=(r, port, rank_dir, str(examples))) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SCALEOUT_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"phase 24: ranks {hung} did not finish within {SCALEOUT_TIMEOUT_S} s")
+    check([p.exitcode for p in procs] == [0, 0], f"phase 24: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = [json.load(open(f"{rank_dir}/rank{r}.json")) for r in range(2)]
+    out["ranks_wall_s"] = time.perf_counter() - t_ranks
+
+    want1 = {"reparam_kl_fwd": 10, "reparam_kl_bwd": 10, "huber_mean": 20}
+    gaps = {}
+    for r, res in enumerate(ranks):
+        dp, tpe = res["dp"], res["tp"]
+        check(dp["launches"] == want1 and tpe["launches"] == want1,
+              f"rank {r}: launches dp {dp['launches']} tp {tpe['launches']}, expected {want1} each")
+        launches[f"data_parallel 2 ranks (gloo), rank {r}"] = dp["launches"]
+        launches[f"tensor parallel 2 ranks (gloo), rank {r}"] = tpe["launches"]
+        first = w1["losses"][0][0], w1["losses"][1][0]  # (a)'s first epoch: train, test
+        gaps[f"dp rank {r}"] = {
+            "first_step": abs(dp["steps"][0] - w1["steps"][0]) / abs(w1["steps"][0]),
+            "loss_train": abs(dp["loss_train"] - first[0]) / abs(first[0]),
+            "loss_test": abs(dp["loss_test"] - first[1]) / abs(first[1]),
+        }
+        gaps[f"tp rank {r}"] = {
+            "loss_train": abs(tpe["loss_train"] - first[0]) / abs(first[0]),
+            "loss_test": abs(tpe["loss_test"] - first[1]) / abs(first[1]),
+            "step_loss_float32": abs(res["tp_step"]["loss"] - ref_step["loss"]) / abs(ref_step["loss"]),
+        }
+        print(f"[24] rank {r} on {res['device']}: dp {dp['loss_train']:.7f}/{dp['loss_test']:.7f} "
+              f"epoch wall ms {dp['epoch_wall_ms']} peak {dp['peak_gib']:.3f} GiB; "
+              f"tp {tpe['loss_train']:.7f}/{tpe['loss_test']:.7f} epoch wall ms {tpe['epoch_wall_ms']} "
+              f"peak {tpe['peak_gib']:.3f} GiB; first train step gap to world 1 {gaps[f'dp rank {r}']['first_step']:.3e}",
+              flush=True)
+        for key, gap in gaps[f"dp rank {r}"].items():
+            check(gap <= 2e-3, f"rank {r}: data-parallel {key} differs from world 1 by {gap:.3e} (rtol 2e-3)")
+        for key in ("loss_train", "loss_test"):
+            check(gaps[f"tp rank {r}"][key] <= 2e-3,
+                  f"rank {r}: tensor-parallel {key} differs from world 1 by {gaps[f'tp rank {r}'][key]:.3e} (rtol 2e-3)")
+        check(gaps[f"tp rank {r}"]["step_loss_float32"] <= 1e-5, f"rank {r}: the float32 TP step's loss beyond rtol 1e-5")
+        pp = res["pp"]
+        print(f"[24] rank {r} pipeline, 2 stages, 4 microbatches, {pp['params']:,} params: loss {pp['loss']:.7f} "
+              f"unpipelined {pp['loss_unpipelined']:.7f} |loss err| {pp['loss_err']:.3e} "
+              f"max |grad err| {pp['grad_max_abs_err']:.3e} (atol 1e-5)", flush=True)
+        check(pp["loss_err"] <= 1e-5 and pp["grad_max_abs_err"] <= 1e-5, f"rank {r}: the pipeline beyond atol 1e-5")
+    check(ranks[0]["dp"]["params_sha256"] == ranks[1]["dp"]["params_sha256"],
+          "the data-parallel ranks' parameters differ after the epoch")
+    check(ranks[0]["tp_step"]["grads_sha256"] == ranks[1]["tp_step"]["grads_sha256"],
+          "the tensor-parallel ranks gathered different gradients")
+    tp_grads = torch.load(f"{rank_dir}/tp_grads.pt")
+    grad_err = 0.0
+    for n, want in ref_step["grads"].items():
+        scale = float(want.abs().max())
+        err = float((tp_grads[n] - want).abs().max())
+        grad_err = max(grad_err, err / max(scale, 1e-30))
+        check(torch.allclose(tp_grads[n], want, rtol=1e-5, atol=1e-5 * scale),
+              f"tensor-parallel gradient {n} beyond rtol 1e-5 (atol 1e-5 of its largest): {err:.3e} of {scale:.3e}")
+    print(f"[24] tensor-parallel float32 step ({ranks[0]['tp_step']['split']} split parameters): loss gap "
+          f"{gaps['tp rank 0']['step_loss_float32']:.3e}, largest gradient gap over its leaf's largest "
+          f"{grad_err:.3e} (rtol 1e-5)")
+    staged = sorted(set(ranks[0]["staged"]) | set(ranks[1]["staged"]))
+    print(f"[24] collectives staged through pinned host memory (gloo refuses CUDA tensors for them): {staged}; "
+          f"all_reduce and broadcast ran on the card's tensors")
+    out.update(gaps=gaps, tp_grad_gap=grad_err, staged=staged, ranks=ranks)
+    for r in ranks:
+        r.pop("pp", None)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    print(f"[24] the ranks' wall {out['ranks_wall_s']:.1f} s; phase wall {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -1889,7 +2284,12 @@ def main() -> None:
         path_launches.update(tooling_out["launches"])
         print(f"[22] tooling summary: {json.dumps(tooling_out)}")
 
-    # ------------------------------------------------------ 23. the kernel list
+        # ------------------------------------------------------ 24. scale-out
+        scaleout_out = scaleout_phase(examples, tmp, dev, smi)
+        path_launches.update(scaleout_out["launches"])
+        print(f"[24] scale-out summary: {json.dumps(scaleout_out)}")
+
+    # ------------------------------------------------------ 25. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -1907,11 +2307,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[23] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[25] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[23] per-epoch wall ms, {label}: {w}")
-    print(f"[23] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[25] per-epoch wall ms, {label}: {w}")
+    print(f"[25] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
     python -m mfvae_tpu_torch                        # default config, on the card
     python -m mfvae_tpu_torch cfg.yaml a.b=c ...     # YAML + dotted overrides
     python -m mfvae_tpu_torch ... --device cpu       # on the CPU, only when asked
+    torchrun --nproc_per_node N -m mfvae_tpu_torch examples/data_parallel.yaml
+                                                     # one rank per process (mesh.enable)
 """
 
+import os
 import sys
 
 from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides, load_config
@@ -44,9 +47,18 @@ def parse_args(argv):
 
 def main():
     cfg, device = parse_args(sys.argv[1:])
+    import torch.distributed as dist
+
+    from mfvae_tpu_torch.parallel.mesh import init_distributed
     from mfvae_tpu_torch.training.experiment import run_experiment
 
-    print(run_experiment(cfg, device))
+    if "WORLD_SIZE" in os.environ:  # under torchrun: join its process group
+        init_distributed(backend="gloo" if device == "cpu" else None)
+    try:
+        print(run_experiment(cfg, device))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -74,15 +74,30 @@ def window_starts(a: torch.Tensor, b: torch.Tensor, size: int, cursor: int, capa
 @dataclass(frozen=True)
 class ItemBuffer:
     """Uniform-sampling FIFO ring over single items or item batches, with
-    an optional leading axis of ``shards`` independent rings (0: none)."""
+    an optional leading axis of ``shards`` independent rings (0: none).
+
+    Under data parallelism a rank holds shards [first_shard, first_shard +
+    shards) of ``global_shards``: every draw is taken for all of them, from
+    a generator in the same state on every rank, and the rank keeps its
+    shards' part, so the ranks together draw what one ring of
+    ``global_shards`` would."""
 
     max_length: int
     min_length: int = 64
     sample_batch_size: int = 64
     shards: int = 0
+    global_shards: int = 0
+    first_shard: int = 0
 
     def _lead(self) -> tuple:
         return (self.shards,) if self.shards else ()
+
+    def _randint(self, high: int, n: int, generator, device) -> torch.Tensor:
+        """Uniform [*lead, n] draws below ``high``, taken over the global shards."""
+        if not self.global_shards:
+            return torch.randint(0, high, self._lead() + (n,), generator=generator, device=device)
+        idx = torch.randint(0, high, (self.global_shards, n), generator=generator, device=device)
+        return idx[self.first_shard : self.first_shard + self.shards]
 
     def init(self, example_item: Tree) -> BufferState:
         """``example_item`` carries the [shards] axis when ``shards`` > 0."""
@@ -144,7 +159,7 @@ class ItemBuffer:
         stratified global batch."""
         n = self.sample_batch_size if batch_size is None else batch_size
         device = tree_leaves(state.data)[0].device
-        idx = torch.randint(0, max(state.size, 1), self._lead() + (n,), generator=generator, device=device)
+        idx = self._randint(max(state.size, 1), n, generator, device)
         if self.shards:
             bs = self.sample_batch_size
             # [shards, n] -> [n / bs, shards, bs]: whole batches, each stratified
@@ -173,14 +188,14 @@ class ItemBuffer:
         if block and not (window <= block <= self.max_length and self.max_length % block == 0):
             raise ValueError(f"block {block} must lie in [window, capacity] and divide {self.max_length}")
         device = tree_leaves(state.data)[0].device
-        shape = self._lead() + (self.sample_batch_size,)
+        n = self.sample_batch_size
         if block:
-            a = torch.randint(0, max(state.size // block, 1), shape, generator=generator, device=device)
-            b = torch.randint(0, block - window + 1, shape, generator=generator, device=device)
+            a = self._randint(max(state.size // block, 1), n, generator, device)
+            b = self._randint(block - window + 1, n, generator, device)
         else:
             full = state.size >= self.max_length
             n_starts = self.max_length - window + 1 if full else max(state.size - window + 1, 1)
-            a = torch.randint(0, n_starts, shape, generator=generator, device=device)
+            a = self._randint(n_starts, n, generator, device)
             b = None
         starts = window_starts(a, b, state.size, state.cursor, self.max_length, window, block)
         return SampleBatch(experience=self.gather_windows(state, starts, window))

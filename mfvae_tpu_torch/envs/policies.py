@@ -10,7 +10,9 @@ batched path, where the JAX package vmaps) and draws from a
 first, so at ``collect_epsilon`` 1 (pursuit), ``mix_frac`` 0
 (episode_mix) or hold 0 (sticky) the action is the sampler's draw from the
 generator state the policy was handed.  No step reads the device from the
-host.
+host.  Each policy's ``draw_noise(generator, lead)`` takes one step's draws
+in that order, and its step takes them as ``noise``: the data-parallel
+collect draws them for every env of the run and keeps its own envs' rows.
 """
 
 from __future__ import annotations
@@ -230,13 +232,18 @@ class EpisodeMixPolicy:
             torch.zeros(leading, dtype=torch.bool, device=self.device),
         )
 
-    def step(self, carry, stacked_obs, env_state, generator):
+    def draw_noise(self, generator, lead=()) -> tuple:
+        """(the sampler's actions, the episode draw, the scripted policy's noise)."""
+        rand = self.sample_fn(generator, lead)
+        draw = torch.rand(lead, generator=generator, device=self.device)
+        return rand, draw, self.scripted.draw_noise(generator, lead)
+
+    def step(self, carry, stacked_obs, env_state, generator, noise=None):
         fresh, use_scripted = carry
         lead = _leading(env_state)
-        rand = self.sample_fn(generator, lead)
-        draw = torch.rand(lead, generator=generator, device=self.device) < self.mix_frac
-        use_scripted = torch.where(fresh, draw, use_scripted)
-        scripted = self.scripted(env_state, generator)
+        rand, draw, scripted_noise = self.draw_noise(generator, lead) if noise is None else noise
+        use_scripted = torch.where(fresh, draw < self.mix_frac, use_scripted)
+        scripted = self.scripted(env_state, generator, scripted_noise)
         pick = use_scripted.reshape(lead + (1,) * (rand.dim() - len(lead)))
         act = torch.where(pick, scripted, rand)
         return (torch.zeros_like(fresh), use_scripted), act
@@ -261,11 +268,14 @@ class StickyRandomPolicy:
         prev = torch.zeros(tuple(leading) + (self.n_agents,) + self.act_shape, dtype=dtype, device=self.device)
         return (prev, torch.ones(leading, dtype=torch.bool, device=self.device))
 
-    def step(self, carry, stacked_obs, env_state, generator):
-        prev, fresh = carry
-        lead = _leading(env_state)
+    def draw_noise(self, generator, lead=()) -> tuple:
+        """(the sampler's actions, the per-agent hold uniforms)."""
         rand = self.sample_fn(generator, lead)
-        u = torch.rand(lead + (self.n_agents,), generator=generator, device=self.device)
+        return rand, torch.rand(lead + (self.n_agents,), generator=generator, device=self.device)
+
+    def step(self, carry, stacked_obs, env_state, generator, noise=None):
+        prev, fresh = carry
+        rand, u = self.draw_noise(generator, _leading(env_state)) if noise is None else noise
         keep = (u < self.sticky_prob) & ~fresh[..., None]
         if not self.discrete:
             keep = keep[..., None]
@@ -286,7 +296,7 @@ def reset_carry(policy, carry, done_all: torch.Tensor):
 def make_collect_policy(env, spec, name: str, epsilon: float, sample_fn, mix_frac: float = 0.5):
     """A collection policy, or None for ``name='random'`` (the reference).
 
-    - ``'pursuit'``: ``policy(state, generator)`` -> actions, scripted
+    - ``'pursuit'``: ``PursuitPolicy``, ``policy(state, generator)`` -> actions, scripted
       chase/evade (simple_tag) or chase/goal-seek (simple_adversary) with
       an epsilon-uniform mixture per agent; dominant-axis
       moves for discrete actions, normalized forces for continuous ones.
@@ -317,17 +327,30 @@ def make_collect_policy(env, spec, name: str, epsilon: float, sample_fn, mix_fra
             f"collect_policy='pursuit' is not defined for {type(env).__name__}"
             " (supported: simple_tag, simple_adversary)"
         )
-    discrete = getattr(env, "discrete_actions", True)
-    n_agents = spec.n_agents
-    epsilon = float(epsilon)
+    return PursuitPolicy(env, spec, delta_fn, epsilon, sample_fn)
 
-    def policy(state, generator):
-        lead = _leading(state)
-        rand = sample_fn(generator, lead)
-        take_rand = torch.rand(lead + (n_agents,), generator=generator, device=env.device) < epsilon
-        delta = delta_fn(env, state)
-        if discrete:
+
+class PursuitPolicy:
+    """``policy(state, generator, noise=None)`` -> scripted actions with an
+    epsilon-uniform mixture per agent; ``draw_noise`` takes the sampler's
+    actions, then the mixture's uniforms."""
+
+    def __init__(self, env, spec, delta_fn, epsilon: float, sample_fn):
+        self.env = env
+        self.delta_fn = delta_fn
+        self.epsilon = float(epsilon)
+        self.sample_fn = sample_fn
+        self.n_agents = spec.n_agents
+        self.discrete = getattr(env, "discrete_actions", True)
+
+    def draw_noise(self, generator, lead=()) -> tuple:
+        rand = self.sample_fn(generator, lead)
+        return rand, torch.rand(lead + (self.n_agents,), generator=generator, device=self.env.device)
+
+    def __call__(self, state, generator, noise=None):
+        rand, u = self.draw_noise(generator, _leading(state)) if noise is None else noise
+        take_rand = u < self.epsilon
+        delta = self.delta_fn(self.env, state)
+        if self.discrete:
             return torch.where(take_rand, rand, _toward_discrete(delta))
         return torch.where(take_rand[..., None], rand, _toward_continuous(delta))
-
-    return policy

@@ -30,7 +30,7 @@ by default) on a missing one.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -62,22 +62,29 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_path(name: str) -> List[str]:
+    """A MAVAE parameter name -> its flax path: ``encoders.0.fc1.kernel`` ->
+    ``['encoders_0', 'fc1', 'kernel']``."""
+    inverse = {v: k for k, v in _LIST_NAME.items()}
+    parts = name.split(".")
+    path, i = [], 0
+    while i < len(parts):
+        if i + 1 < len(parts) and parts[i + 1].isdigit():
+            path.append(f"{inverse.get(parts[i], parts[i])}_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    return path
+
+
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """A MAVAE state_dict -> the JAX parameter tree (nested dicts of numpy
     float32 arrays, without the ``params`` key): the inverse of
     ``params_from_jax``."""
-    inverse = {v: k for k, v in _LIST_NAME.items()}
     root: Dict[str, Any] = {}
     for name, t in state_dict.items():
-        parts = name.split(".")
-        path, i = [], 0
-        while i < len(parts):
-            if i + 1 < len(parts) and parts[i + 1].isdigit():
-                path.append(f"{inverse.get(parts[i], parts[i])}_{parts[i + 1]}")
-                i += 2
-            else:
-                path.append(parts[i])
-                i += 1
+        path = flax_path(name)
         node = root
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mfvae_tpu_torch.config import LossConfig
+from mfvae_tpu_torch.parallel.mesh import DATA_AXIS
 
 # Symlog half-range of the two-hot reward grid: bins are
 # symexp(linspace(-R, R, K)), so the grid follows from K alone
@@ -104,12 +105,18 @@ def weighted_state_loss(
     rewards: torch.Tensor,
     cfg: LossConfig,
     s_col_weight: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """State-branch loss with the contact-sharpness levers: a weighted mean
     over columns per sample (``s_col_weight`` [D]), and transitions whose
     max agent reward exceeds ``cfg.contact_threshold`` counted
     (1 + contact_weight)x, normalized by this batch's weight sum.  With
-    both levers off it is mean(elem), the reference objective."""
+    both levers off it is mean(elem), the reference objective.
+
+    With a ``mesh`` of n > 1 data ranks the rows are this rank's and the
+    weight sum is the global batch's: the rank's share times n, so the
+    mean of the ranks' losses (and of their gradients) is the global
+    batch's."""
     elem = _elem_loss(next_state, recon_state, cfg)  # [B, D]
     if s_col_weight is not None:
         rows = torch.sum(elem * s_col_weight, dim=-1) / torch.sum(s_col_weight)
@@ -118,7 +125,11 @@ def weighted_state_loss(
     if cfg.contact_weight > 0.0:
         contact = (torch.amax(rewards, dim=-1) > cfg.contact_threshold).to(torch.float32)
         w = 1.0 + cfg.contact_weight * contact
-        return torch.sum(rows * w) / torch.clamp(torch.sum(w), min=1e-9)
+        w_sum = torch.sum(w)
+        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+            n = mesh.shape[DATA_AXIS]
+            return n * torch.sum(rows * w) / torch.clamp(mesh.all_reduce(w_sum, DATA_AXIS), min=1e-9)
+        return torch.sum(rows * w) / torch.clamp(w_sum, min=1e-9)
     return torch.mean(rows)
 
 
@@ -167,13 +178,14 @@ def elbo_losses(
     recon_state, recon_reward, next_state, rewards, mu, logvar,
     cfg: LossConfig, kl_scale: Optional[torch.Tensor] = None,
     s_col_weight: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> LossOutputs:
     """Total training loss on the reference objective, with the two-hot
     reward term where ``recon_reward`` has one more axis than ``rewards``
     and the weighted state branch where ``s_col_weight`` or
-    ``cfg.contact_weight`` is set."""
+    ``cfg.contact_weight`` is set (``mesh``: see ``weighted_state_loss``)."""
     if s_col_weight is not None or cfg.contact_weight > 0.0:
-        s_loss = weighted_state_loss(recon_state, next_state, rewards, cfg, s_col_weight)
+        s_loss = weighted_state_loss(recon_state, next_state, rewards, cfg, s_col_weight, mesh)
     elif cfg.use_huber:
         s_loss = huber(next_state, recon_state, cfg.huber_delta)
     else:

@@ -312,6 +312,14 @@ class MAVAE(nn.Module):
         b, a, f = shape
         return torch.stack([self._draw(generator, (b, f), None, "eps") for _ in range(a)], dim=1)
 
+    def draw_eps(self, generator: torch.Generator, batch_size: int):
+        """(eps [B, A, F], eps_shared [B, S] or None): the draws a sampling
+        call over ``batch_size`` rows takes from ``generator``, in its order."""
+        eps = self._eps(generator, (batch_size, self.spec.n_agents, self.obs_features))
+        if not self.shared:
+            return eps, None
+        return eps, self._draw(generator, (batch_size, self.shared_latent), None, "eps_shared")
+
     @staticmethod
     def reparameterize(mu, logvar, eps):
         """z = mu + eps * exp(0.5*logvar), in float32."""

@@ -19,6 +19,18 @@ epoch itself, as the JAX package traces its first dispatched chunk
 ``utils/debug_nans.NanGuard``, on for the run and off again after it.
 ``train.bug_compat_rng`` starts every epoch from the streams' state at the
 start of epoch 0 (``rng.py``).
+
+``mesh.enable`` (with ``train.n_envs`` > 1, as in the JAX package, which
+shards only its batched epoch) runs one rank per process over the
+('data','model') mesh of ``parallel/mesh.py``: call
+``parallel.init_distributed()`` first (``python -m mfvae_tpu_torch`` does
+under torchrun), or run it as one process, world size 1.  Data rank d
+steps envs [d·E/D, (d+1)·E/D) and holds their ring shards; with
+``mesh.model_axis`` > 1 the model is tensor-parallel (``parallel/tp.py``)
+and the model ranks of a data rank step the same envs.  The parameters
+are broadcast from rank 0 at setup; rank 0 alone logs and writes
+checkpoints, which hold the whole carry (shards gathered), so a run
+resumes onto any mesh whose data axis divides n_envs.
 """
 
 from __future__ import annotations
@@ -37,9 +49,12 @@ from mfvae_tpu_torch.data.transitions import GroupedTransition
 from mfvae_tpu_torch.envs.mpe import make
 from mfvae_tpu_torch.envs.spaces import get_space_size
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, zero_actions_grouped
+from mfvae_tpu_torch.parallel import tp
+from mfvae_tpu_torch.parallel.dp import broadcast_parameters_
+from mfvae_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from mfvae_tpu_torch.rng import make_streams
 from mfvae_tpu_torch.training.checkpoint import CheckpointManager, NullCheckpointManager
-from mfvae_tpu_torch.training.metrics import MetricsLogger
+from mfvae_tpu_torch.training.metrics import MetricsLogger, NullLogger
 from mfvae_tpu_torch.training.popart import PopArtState
 from mfvae_tpu_torch.training.trainer import (
     EnvCarry,
@@ -72,24 +87,30 @@ def build_spec(env) -> AgentSpec:
     return AgentSpec.from_dicts(env.agents, obs_dim, act_dim)
 
 
-def _refuse_unported(cfg: ExperimentConfig) -> None:
-    if cfg.mesh.enable:
-        raise NotImplementedError(
-            "mesh.enable is not ported to the PyTorch package yet (ROADMAP M17)"
+def _experiment_mesh(cfg: ExperimentConfig):
+    """The run's mesh, or None: ``mesh.enable`` acts on the batched epoch
+    only (with one env the JAX package ignores it)."""
+    if not (cfg.mesh.enable and cfg.train.n_envs > 1):
+        return None
+    mesh = make_mesh(n_data=cfg.mesh.data_axis, n_model=cfg.mesh.model_axis)
+    if cfg.train.n_envs % mesh.shape[DATA_AXIS]:
+        raise ValueError(
+            f"train.n_envs={cfg.train.n_envs} is not divisible by the mesh's data axis ({mesh.shape})"
         )
-    # the vdn: collect policies are resolved in trainer.py.  fused_epoch,
-    # epochs_per_dispatch and eval_vmap shape only the JAX package's XLA
-    # program and change nothing here, except that setup refuses
-    # epochs_per_dispatch > 1 without the fused epoch, as the JAX package
-    # does, and that epochs_per_dispatch sets profile_epochs' window
+    return mesh
 
 
 class Experiment:
+    # fused_epoch, epochs_per_dispatch and eval_vmap shape only the JAX
+    # package's XLA program and change nothing here, except that build
+    # refuses epochs_per_dispatch > 1 without the fused epoch, as the JAX
+    # package does, and that epochs_per_dispatch sets profile_epochs' window
     def __init__(self, cfg: ExperimentConfig, device="cuda"):
         self.cfg = cfg
         cfg.validate()
-        _refuse_unported(cfg)
         self.device = resolve_device(device)
+        self.mesh = _experiment_mesh(cfg)
+        self.is_chief = self.mesh is None or self.mesh.rank == 0
         self.env = make(
             cfg.env.name,
             device=self.device,
@@ -107,7 +128,7 @@ class Experiment:
         )
         if cfg.train.n_envs > 1:
             # the batched epoch: one buffer shard per env
-            self.buffer = shard_buffer(self.buffer, cfg)
+            self.buffer = shard_buffer(self.buffer, cfg, self.mesh)
         self.test_buffer = self.buffer
         self.streams = make_streams(cfg.train.seed, device=self.device, bug_compat=cfg.train.bug_compat_rng)
         self.logger: Optional[MetricsLogger] = None
@@ -122,9 +143,12 @@ class Experiment:
         manager, and the resume when ``train.resume`` is set."""
         cfg = self.cfg
         self.build()
-        self.logger = MetricsLogger(cfg.train.log_dir, cfg.train.run_name)
-        # the resolved config beside the run's metrics reproduces the run
-        save_config(cfg, str(self.logger.run_dir / "config.yaml"))
+        if self.is_chief:
+            self.logger = MetricsLogger(cfg.train.log_dir, cfg.train.run_name)
+            # the resolved config beside the run's metrics reproduces the run
+            save_config(cfg, str(self.logger.run_dir / "config.yaml"))
+        else:
+            self.logger = NullLogger(cfg.train.log_dir, cfg.train.run_name)
         self.ckpt = (
             CheckpointManager(cfg.train.checkpoint_dir)
             if cfg.train.checkpoint_dir
@@ -132,6 +156,9 @@ class Experiment:
         )
         if cfg.train.resume:
             self._try_resume()
+        # every rank decides a save from this, never from the directory,
+        # which rank 0 alone writes
+        self._last_saved = self.ckpt.latest_step()
         return self
 
     def build(self):
@@ -159,23 +186,32 @@ class Experiment:
                     "model.reward_head_mode='twohot' is incompatible with "
                     "model.use_pallas (the fused kernel scores scalar huber)"
                 )
+        mesh = self.mesh
         lead = (cfg.train.n_envs,) if cfg.train.n_envs > 1 else ()
         obs, env_state = self.env.reset_stacked(self.streams["reset"], batch_shape=lead)
+        if mesh is not None:
+            # the reset of every env, this rank's rows kept
+            obs, env_state = tree_map(mesh.local_rows, (obs, env_state))
+            lead = (obs[0].shape[0],)
         example = self._example_transition(obs, env_state, lead)
         model = MAVAE.from_config(
             cfg.model, self.spec, device=self.device, generator=self.streams["model"]
         )
+        if mesh is not None:
+            broadcast_parameters_(model, mesh)
+            if mesh.shape[MODEL_AXIS] > 1:
+                tp.shard_model_(model, mesh)
         self.carry = EpochCarry(
             train_state=create_train_state(model, cfg.train),
             buffer_state=self.buffer.init(example),
             test_buffer_state=self.test_buffer.init(example),
             env=EnvCarry(
                 obs=obs, state=env_state,
-                policy=init_policy_carry(self.env, self.spec, cfg, cfg.train.n_envs),
+                policy=init_policy_carry(self.env, self.spec, cfg, lead),
             ),
         )
         self._epoch_fn = make_epoch_fn(
-            self.env, self.spec, self.buffer, self.test_buffer, cfg, self.streams
+            self.env, self.spec, self.buffer, self.test_buffer, cfg, self.streams, mesh
         )
         # bug_compat_rng: every epoch starts from the streams' state here,
         # which follows from the seed alone, so a resume rebuilds it
@@ -217,28 +253,41 @@ class Experiment:
 
     # ----------------------------------------------------------- checkpoint
     def _payload(self, epoch: int) -> dict:
+        """The whole carry; under a mesh every rank takes part (the shards
+        are gathered) and every rank gets it."""
         c = self.carry
         ts = c.train_state
+        mesh = self.mesh
+
+        def envs(xs):  # the env axis whole
+            return [mesh.all_gather(x, DATA_AXIS, 0) for x in xs] if mesh is not None else list(xs)
 
         def buffer(b: BufferState):
-            return {"data": tree_leaves(b.data), "cursor": b.cursor, "size": b.size}
+            return {"data": envs(tree_leaves(b.data)), "cursor": b.cursor, "size": b.size}
 
+        sharded = tp.is_sharded(ts.model)
         return {
             "epoch": epoch,
-            "model": ts.model.state_dict(),
-            "optimizer": ts.optimizer.state_dict(),
+            "model": tp.full_state_dict(ts.model, mesh) if sharded else ts.model.state_dict(),
+            "optimizer": tp.full_optimizer_state(ts.optimizer, ts.model, mesh) if sharded
+            else ts.optimizer.state_dict(),
             "step": ts.step,
             "popart": list(ts.popart),
             "buffer": buffer(c.buffer_state),
             "test_buffer": buffer(c.test_buffer_state),
-            "env_obs": list(c.env.obs),
-            "env_state": list(c.env.state),
-            "env_policy": list(c.env.policy),
+            "env_obs": envs(c.env.obs),
+            "env_state": envs(c.env.state),
+            "env_policy": envs(c.env.policy),
             "rng": {name: g.get_state() for name, g in self.streams.items()},
         }
 
     def _save(self, epoch: int):
-        self.ckpt.save(epoch, self._payload(epoch))
+        self._last_saved = epoch
+        if self.ckpt.directory is None:
+            return  # checkpointing is off: nothing to gather
+        payload = self._payload(epoch)
+        if self.is_chief:
+            self.ckpt.save(epoch, payload)
 
     def _try_resume(self):
         step = self.ckpt.latest_step()
@@ -247,18 +296,26 @@ class Experiment:
         p = self.ckpt.restore(step)
         c = self.carry
         ts = c.train_state
-        ts.model.load_state_dict(p["model"])
-        ts.optimizer.load_state_dict(p["optimizer"])
+        mesh = self.mesh
+        if tp.is_sharded(ts.model):
+            tp.load_full_state_dict_(ts.model, p["model"], mesh)
+            tp.load_full_optimizer_state_(ts.optimizer, p["optimizer"], ts.model, mesh)
+        else:
+            ts.model.load_state_dict(p["model"])
+            ts.optimizer.load_state_dict(p["optimizer"])
         ts.step = int(p["step"])
         ts.popart = PopArtState(*(x.to(self.device) for x in p["popart"]))
 
+        def mine(x):  # this rank's envs of the whole env axis
+            return mesh.local_rows(x) if mesh is not None else x
+
         def buffer(b: BufferState, saved) -> BufferState:
             leaves = iter(saved["data"])
-            data = tree_map(lambda buf: buf.copy_(next(leaves)), b.data)
+            data = tree_map(lambda buf: buf.copy_(mine(next(leaves))), b.data)
             return BufferState(data=data, cursor=int(saved["cursor"]), size=int(saved["size"]))
 
         def to_dev(xs):
-            return [x.to(self.device) for x in xs]
+            return [mine(x).to(self.device) for x in xs]
 
         self.carry = EpochCarry(
             train_state=ts,
@@ -301,6 +358,7 @@ class Experiment:
         epoch_wall = []
         epoch = self.start_epoch - 1
         preempted = []
+        stop = False
         old_handlers = {}
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
@@ -324,20 +382,22 @@ class Experiment:
                     last = {"epoch": epoch, "loss_train": train.loss, "loss_test": test.loss}
                     if cfg.train.checkpoint_every and (epoch + 1) % cfg.train.checkpoint_every == 0:
                         self._save(epoch)
-                    if preempted:
+                    # a signal may reach the ranks in different epochs: they stop together
+                    stop = bool(preempted) if self.mesh is None else self.mesh.any(bool(preempted))
+                    if stop:
                         print(f"preempted: checkpointing epoch {epoch}, exiting cleanly", flush=True)
                         break
         finally:
             tracing.close()
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
-        if epoch >= 0 and self.ckpt.latest_step() != epoch:
+        if epoch >= 0 and self._last_saved != epoch:
             self._save(epoch)
         self.ckpt.wait()
         self.logger.flush()
         last["wall_s"] = time.time() - t0
         last["epoch_wall_s"] = epoch_wall
-        if preempted:
+        if stop:
             last["preempted_at"] = epoch
         return last
 

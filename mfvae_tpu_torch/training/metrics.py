@@ -7,16 +7,10 @@ from __future__ import annotations
 
 import json
 import time
+import weakref
 from datetime import datetime
 from pathlib import Path
 from typing import Optional
-
-try:
-    from tensorboardX import SummaryWriter
-
-    _HAVE_TBX = True
-except ImportError:  # pragma: no cover
-    _HAVE_TBX = False
 
 
 class MetricsLogger:
@@ -25,7 +19,15 @@ class MetricsLogger:
             run_name = f"run_{datetime.now().strftime('%Y-%m-%d-%H:%M:%S')}"
         self.run_dir = Path(log_dir) / run_name
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        self._tb = SummaryWriter(str(self.run_dir)) if _HAVE_TBX else None
+        try:  # imported here: it takes a second, which every rank process would pay
+            from tensorboardX import SummaryWriter
+        except ImportError:  # pragma: no cover
+            SummaryWriter = None
+        self._tb = SummaryWriter(str(self.run_dir)) if SummaryWriter is not None else None
+        if self._tb is not None:
+            # at exit, before multiprocessing closes the queue its writer
+            # thread reads (which raised in every spawned rank)
+            weakref.finalize(self, self._tb.close)
         self._jsonl = open(self.run_dir / "metrics.jsonl", "a")
 
     def scalar(self, tag: str, value: float, step: int):
@@ -52,6 +54,23 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.close()
         self._jsonl.close()
+
+
+class NullLogger(MetricsLogger):
+    """The logger of a rank other than 0 under a mesh: the same ``run_dir``,
+    nothing written."""
+
+    def __init__(self, log_dir: str, run_name: str = ""):
+        self.run_dir = Path(log_dir) / run_name
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
 
 
 class WandbLogger:

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from mfvae_tpu_torch.parallel.mesh import DATA_AXIS
+
 SIGMA_MIN, SIGMA_MAX = 1e-4, 1e6
 
 
@@ -36,11 +38,19 @@ def init_popart(n_outputs: int, device=None) -> PopArtState:
     )
 
 
-def art(state: PopArtState, targets: torch.Tensor, beta: float) -> PopArtState:
-    """EMA stats update from a batch of targets [B, n_outputs]."""
+def art(state: PopArtState, targets: torch.Tensor, beta: float, mesh=None) -> PopArtState:
+    """EMA stats update from a batch of targets [B, n_outputs].  With a
+    ``mesh`` of more than one data rank, ``targets`` are this rank's rows
+    and the batch moments come from sums and sums of squares summed over
+    'data' (``parallel/dp.py``)."""
     t = targets.to(torch.float32)
-    mu_new = (1.0 - beta) * state.mu + beta * torch.mean(t, dim=0)
-    nu_new = (1.0 - beta) * state.nu + beta * torch.mean(t * t, dim=0)
+    if mesh is None or mesh.shape[DATA_AXIS] == 1:
+        m1, m2 = torch.mean(t, dim=0), torch.mean(t * t, dim=0)
+    else:
+        sums = mesh.all_reduce(torch.stack([torch.sum(t, dim=0), torch.sum(t * t, dim=0)]), DATA_AXIS)
+        m1, m2 = sums / (t.shape[0] * mesh.shape[DATA_AXIS])
+    mu_new = (1.0 - beta) * state.mu + beta * m1
+    nu_new = (1.0 - beta) * state.nu + beta * m2
     sigma_new = torch.sqrt(torch.clamp(nu_new - mu_new * mu_new, min=SIGMA_MIN**2))
     sigma_new = torch.clamp(sigma_new, SIGMA_MIN, SIGMA_MAX)
     return PopArtState(mu=mu_new, nu=nu_new, sigma=sigma_new)

@@ -4,7 +4,8 @@ POPART.
 
 PyTorch runs eagerly, so the JAX package's scans become Python loops and
 its vmapped eval becomes one forward over every eval batch at once (the
-eval steps are independent given the parameters).  Where each step's loss
+eval steps are independent given the parameters), or one per chunk of
+whole eval batches where they hold more than ``EVAL_CHUNK_ROWS`` rows.  Where each step's loss
 is a mean over an equal-sized batch, the mean of the per-step means is the
 mean over the joined batch, and the losses are taken over the joined
 batch.  That argument stops at ``loss.contact_weight > 0``: the weighted
@@ -33,13 +34,16 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from mfvae_tpu_torch.config import ExperimentConfig, LossConfig, TrainConfig
-from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer, tree_map
+from mfvae_tpu_torch.data.buffer import BufferState, ItemBuffer, tree_leaves, tree_map
 from mfvae_tpu_torch.data.transitions import GroupedTransition, VaeBatch, vae_batch_from_grouped
 from mfvae_tpu_torch.envs.mpe import tag_prey_rel_slice
 from mfvae_tpu_torch.envs.policies import make_collect_policy, reset_carry
 from mfvae_tpu_torch.models.losses import LossOutputs, combine_losses, elbo_losses
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec
 from mfvae_tpu_torch.ops.fused_elbo import huber_mean
+from mfvae_tpu_torch.parallel import tp
+from mfvae_tpu_torch.parallel.dp import average_gradients, mean_over_data
+from mfvae_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from mfvae_tpu_torch.training.popart import (
     PopArtState,
     art,
@@ -47,6 +51,13 @@ from mfvae_tpu_torch.training.popart import (
     normalize,
     pop_rescale_head,
 )
+
+
+# rows of one eval forward at most (whole eval batches; at least one): the
+# eval of data_parallel.yaml, 64 batches of 4,096 rows at Σobs 5,660, took
+# 61.6 GiB in one forward on an H100 80GB HBM3 at 700 W, 21.0 GiB in
+# chunks of this size (PERF.md §6)
+EVAL_CHUNK_ROWS = 32768
 
 
 def _check_mode(mode: str) -> None:
@@ -116,23 +127,38 @@ def _kl_scale(loss_cfg: LossConfig, step: int) -> Optional[float]:
     return None
 
 
-def _clip_by_global_norm(params, max_norm: float) -> None:
+def _clip_by_global_norm(params, max_norm: float, mesh=None, split_dims=None) -> None:
     """optax.clip_by_global_norm: scale every gradient by max_norm / norm
-    when the global norm exceeds max_norm (no host sync)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    when the global norm exceeds max_norm (no host sync).  Under tensor
+    parallelism (a ``mesh`` with 'model' > 1 and each parameter's
+    ``split_dims``, ``parallel/tp.py``) a split parameter's squares are
+    summed over 'model' and a replicated one's counted once."""
+    params = list(params)
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
+        grads = [p.grad for p in params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        kept = [(p.grad, d is not None) for p, d in zip(params, split_dims) if p.grad is not None]
+        grads = [g for g, _ in kept]
+        sq = torch.stack([torch.sum(g.to(torch.float32) ** 2) for g in grads])
+        split = torch.tensor([s for _, s in kept], device=sq.device)
+        norm = torch.sqrt(torch.sum(sq[~split]) + mesh.all_reduce(torch.sum(sq[split]), MODEL_AXIS))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor)
 
 
-def apply_update(state: TrainState, loss: torch.Tensor) -> None:
-    """One optimizer update from ``loss``: backward, the global-norm clip
-    when ``grad_clip`` > 0, Adam at the schedule's lr; counts the step."""
+def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
+    """One optimizer update from ``loss``: backward, the gradients averaged
+    over the mesh's 'data' axis, the global-norm clip when ``grad_clip`` >
+    0, Adam at the schedule's lr; counts the step."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        average_gradients(state.model.parameters(), mesh)
     if state.grad_clip > 0:
-        _clip_by_global_norm(state.model.parameters(), state.grad_clip)
+        dims = None if mesh is None else tp.split_dims(state.model)
+        _clip_by_global_norm(state.model.parameters(), state.grad_clip, mesh, dims)
     for group in state.optimizer.param_groups:
         group["lr"] = state.lr_fn(state.step)
     state.optimizer.step()
@@ -145,9 +171,17 @@ def make_train_step(
     popart_beta: float = 3e-4,
     use_pallas: bool = False,
     s_col_weight: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Callable:
     """(state, batch: VaeBatch, generator=None, eps=None, eps_shared=None)
     -> (state, LossOutputs).  The state is updated in place and returned.
+
+    With a ``mesh`` (``parallel/mesh.py``) the batch holds this data rank's
+    rows: the PopArt moments and the contact weight sum are taken over the
+    global batch, the gradients averaged over 'data' before the clip, and
+    the losses averaged over 'data' (``parallel/dp.py``); the model may be
+    tensor-parallel (``parallel/tp.py``).  At one rank every collective is
+    skipped and the step computes what the step without a mesh does.
 
     Under ART and POPART the PopArt stats take one ``art`` update from the
     batch's rewards; POPART then rescales the reward head from the old
@@ -179,11 +213,13 @@ def make_train_step(
             "normalization is unsupported — use train.mode='Adam'"
         )
 
+    dp = mesh if mesh is not None and mesh.shape[DATA_AXIS] > 1 else None
+
     def train_step(state: TrainState, batch: VaeBatch, generator=None, eps=None, eps_shared=None):
         model = state.model
         reward_targets = batch.rewards
         if use_art:
-            pa_new = art(state.popart, batch.rewards, popart_beta)
+            pa_new = art(state.popart, batch.rewards, popart_beta, dp)
             if use_pop:
                 pop_rescale_head(model, state.popart, pa_new)
             state.popart = pa_new
@@ -199,16 +235,17 @@ def make_train_step(
             recon_s, recon_r, mu, logvar = model(batch.inputs, None, generator, eps, eps_shared)
             out = elbo_losses(
                 recon_s, recon_r, batch.next_state, reward_targets, mu, logvar,
-                loss_cfg, kl_scale=kl_scale, s_col_weight=s_col_weight,
+                loss_cfg, kl_scale=kl_scale, s_col_weight=s_col_weight, mesh=dp,
             )
-        apply_update(state, out.loss)
-        return state, LossOutputs(*(x.detach() for x in out))
+        apply_update(state, out.loss, mesh)
+        out = LossOutputs(*(x.detach() for x in out))
+        return state, out if dp is None else mean_over_data(out, dp)
 
     return train_step
 
 
 def make_test_step(
-    loss_cfg: LossConfig, mode: str = "Adam", s_col_weight: Optional[torch.Tensor] = None
+    loss_cfg: LossConfig, mode: str = "Adam", s_col_weight: Optional[torch.Tensor] = None, mesh=None,
 ) -> Callable:
     """Eval step: forward + losses, no gradient.  Under ART/POPART the
     reward target is normalized by the state's PopArt stats.
@@ -217,10 +254,13 @@ def make_test_step(
     n_batches=1)``: ``batch`` may join ``n_batches`` equal eval batches.
     One forward covers them all; under ``loss.contact_weight`` the losses
     are taken per batch and averaged, elsewhere over the joined batch
-    (the same number; see the module docstring)."""
+    (the same number; see the module docstring).  With a ``mesh`` of
+    several data ranks the batch holds this rank's rows of every eval batch
+    and the losses are the global batch's, as in ``make_train_step``."""
     _check_mode(mode)
     use_art = mode in ("ART", "POPART")
     per_batch = loss_cfg.contact_weight > 0.0
+    dp = mesh if mesh is not None and mesh.shape[DATA_AXIS] > 1 else None
 
     @torch.no_grad()
     def test_step(state: TrainState, batch: VaeBatch, generator=None, eps=None, eps_shared=None,
@@ -231,12 +271,14 @@ def make_test_step(
         recon_s, recon_r, mu, logvar = state.model(batch.inputs, None, generator, eps, eps_shared)
         parts = (recon_s, recon_r, batch.next_state, reward_targets, mu, logvar)
         if not per_batch or n_batches == 1:
-            return elbo_losses(*parts, loss_cfg, s_col_weight=s_col_weight)
-        outs = [
-            elbo_losses(*chunk, loss_cfg, s_col_weight=s_col_weight)
-            for chunk in zip(*(x.chunk(n_batches) for x in parts))
-        ]
-        return LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
+            out = elbo_losses(*parts, loss_cfg, s_col_weight=s_col_weight, mesh=dp)
+        else:
+            outs = [
+                elbo_losses(*chunk, loss_cfg, s_col_weight=s_col_weight, mesh=dp)
+                for chunk in zip(*(x.chunk(n_batches) for x in parts))
+            ]
+            out = LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
+        return out if dp is None else mean_over_data(out, dp)
 
     return test_step
 
@@ -351,33 +393,38 @@ def _resolve_collect_policy(env, spec: AgentSpec, cfg: ExperimentConfig, sample_
     )
 
 
-def init_policy_carry(env, spec: AgentSpec, cfg: ExperimentConfig, n_envs: int = 1) -> tuple:
+def init_policy_carry(env, spec: AgentSpec, cfg: ExperimentConfig, lead: tuple = ()) -> tuple:
     """The initial ``EnvCarry.policy`` of a fresh experiment: () for
-    stateless collection, else the policy's ``init_carry()``, with a
-    leading [n_envs] axis on the batched path."""
+    stateless collection, else the policy's ``init_carry(lead)``, with
+    ``lead`` the env axes ([n_envs] on the batched path, this rank's envs
+    under a mesh)."""
     sample_fn, _ = make_action_sampler(env, spec)
     policy = _resolve_collect_policy(env, spec, cfg, sample_fn)
     if not hasattr(policy, "init_carry"):
         return ()
-    return policy.init_carry((n_envs,) if n_envs > 1 else ())
+    return policy.init_carry(lead)
 
 
-def shard_buffer(buffer: ItemBuffer, cfg: ExperimentConfig) -> ItemBuffer:
+def shard_buffer(buffer: ItemBuffer, cfg: ExperimentConfig, mesh=None) -> ItemBuffer:
     """The batched epoch's buffer (``train.n_envs`` > 1): one shard per
     env, splitting the capacity (a full one per shard would multiply the
     device memory by n_envs), each giving batch_size / n_envs items to
-    every global batch."""
+    every global batch.  With a ``mesh`` of D data ranks this rank holds
+    its n_envs / D envs' shards and draws for all n_envs."""
     e = cfg.train.n_envs
     if cfg.buffer.batch_size % e:
         raise ValueError(
             f"train.n_envs={e} needs buffer.batch_size ({cfg.buffer.batch_size}) divisible by n_envs"
         )
     local_bs = cfg.buffer.batch_size // e
+    d = mesh.shape[DATA_AXIS] if mesh is not None else 1
     return ItemBuffer(
         max_length=max(buffer.max_length // e, local_bs),
         min_length=max(buffer.min_length // e, 1),
         sample_batch_size=local_bs,
-        shards=e,
+        shards=e // d,
+        global_shards=e if d > 1 else 0,
+        first_shard=mesh.index(DATA_AXIS) * (e // d) if d > 1 else 0,
     )
 
 
@@ -388,6 +435,7 @@ def make_phase_fns(
     test_buffer: ItemBuffer,
     cfg: ExperimentConfig,
     streams: Dict[str, torch.Generator],
+    mesh=None,
 ):
     """(collect, train_phase, test_phase) closures over the run's streams.
 
@@ -398,9 +446,17 @@ def make_phase_fns(
     ``torch.where``, with no host sync per step.  With
     ``train.unroll_steps`` = W > 1 each train step is the multi-step
     objective (``training/unroll.py``) on windows that never straddle a
-    collection phase."""
+    collection phase.
+
+    With a ``mesh`` (``mesh.enable``, batched only) data rank d of D holds
+    envs [d·E/D, (d+1)·E/D): their env and policy carries and both rings'
+    shards.  Every draw of the epoch (actions, resets, samples, eps) is
+    taken at its global shape from the same generator state on every rank
+    and the rank keeps its rows, so the D ranks together compute the
+    unsharded batched epoch, up to the order of the sums over ranks."""
     s_col_weight = build_s_col_weight(spec, cfg, env.device)
     W, E = cfg.train.unroll_steps, cfg.train.n_envs
+    D = mesh.shape[DATA_AXIS] if mesh is not None else 1
     if W > 1:
         from mfvae_tpu_torch.training.unroll import make_unroll_train_step  # it imports this module
 
@@ -420,24 +476,38 @@ def make_phase_fns(
             stop_gradient=cfg.train.unroll_stop_gradient,
             mean_feedback=cfg.train.unroll_mean_feedback,
             s_col_weight=s_col_weight,
+            mesh=mesh,
         )
     else:
         train_step = make_train_step(
             cfg.loss, cfg.train.mode, cfg.train.popart_beta,
-            use_pallas=cfg.model.use_pallas, s_col_weight=s_col_weight,
+            use_pallas=cfg.model.use_pallas, s_col_weight=s_col_weight, mesh=mesh,
         )
-    test_step = make_test_step(cfg.loss, cfg.train.mode, s_col_weight=s_col_weight)
+    test_step = make_test_step(cfg.loss, cfg.train.mode, s_col_weight=s_col_weight, mesh=mesh)
     sample_actions, group_actions = make_action_sampler(env, spec)
     policy = _resolve_collect_policy(env, spec, cfg, sample_actions)
     stateful = hasattr(policy, "init_carry")
-    lead = (E,) if E > 1 else ()
+    lead = (E // D,) if E > 1 else ()
+    global_lead = (E,) if E > 1 else ()
+
+    def rows(tree, n_batches: int = 1):
+        """This rank's rows of a draw over every env (or over every row of
+        n_batches batches)."""
+        return tree if D == 1 else tree_map(lambda x: mesh.local_rows(x, n_batches=n_batches), tree)
+
+    def draw_eps(model: MAVAE, generator, n_rows: int, n_batches: int = 1):
+        """(eps, eps_shared) of this rank's rows of a forward over n_rows
+        rows of the run (n_batches blocks), drawn as that forward would."""
+        eps, eps_s = model.draw_eps(generator, n_rows)
+        return rows(eps, n_batches), None if eps_s is None else rows(eps_s, n_batches)
 
     def act(env_c: EnvCarry, pol_c):
         if policy is None:
-            return pol_c, sample_actions(streams["act"], lead)
+            return pol_c, rows(sample_actions(streams["act"], global_lead))
+        noise = rows(policy.draw_noise(streams["act"], global_lead))
         if stateful:
-            return policy.step(pol_c, env_c.obs, env_c.state, streams["act"])
-        return pol_c, policy(env_c.state, streams["act"])
+            return policy.step(pol_c, env_c.obs, env_c.state, streams["act"], noise=noise)
+        return pol_c, policy(env_c.state, streams["act"], noise=noise)
 
     def collect(env_c: EnvCarry, buf_state: BufferState, which_buffer: ItemBuffer):
         # the policy carry resumes from the previous phase or epoch, so an
@@ -461,7 +531,7 @@ def make_phase_fns(
                 def pick(a, b):
                     return torch.where(done_all.reshape(lead + (1,) * (a.dim() - 1)), a, b)
 
-                reset_obs, reset_state = env.reset_stacked(streams["reset"], batch_shape=lead)
+                reset_obs, reset_state = rows(env.reset_stacked(streams["reset"], batch_shape=global_lead))
                 env_c = EnvCarry(tree_map(pick, reset_obs, next_obs), tree_map(pick, reset_state, next_state))
                 if stateful:
                     pol_c = reset_carry(policy, pol_c, done_all)
@@ -474,16 +544,24 @@ def make_phase_fns(
                 env_c = EnvCarry(obs=next_obs, state=next_state)
         return env_c._replace(policy=pol_c), buf_state
 
+    def window_eps(model: MAVAE):
+        """``draw_eps`` of each of an unroll window's W steps, stacked."""
+        steps = [draw_eps(model, streams["train"], cfg.buffer.batch_size) for _ in range(W)]
+        eps_s = [s for _, s in steps]
+        return torch.stack([e for e, _ in steps]), None if eps_s[0] is None else torch.stack(eps_s)
+
     def train_phase(train_state: TrainState, buf_state: BufferState):
         outs = []
         for _ in range(cfg.train.train_num):
             if W > 1:
                 wb = buffer.sample_window(buf_state, streams["sample"], W, block=cfg.train.sample_num)
-                train_state, o = unroll_step(train_state, wb.experience, streams["train"])
+                train_state, o = unroll_step(train_state, wb.experience, streams["train"],
+                                             *window_eps(train_state.model))
             else:
                 batch = buffer.sample(buf_state, streams["sample"])
                 vb = vae_batch_from_grouped(spec, batch.experience)
-                train_state, o = train_step(train_state, vb, streams["train"])
+                eps, eps_s = draw_eps(train_state.model, streams["train"], cfg.buffer.batch_size)
+                train_state, o = train_step(train_state, vb, streams["train"], eps, eps_s)
             outs.append(o)
         return train_state, LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
 
@@ -492,12 +570,29 @@ def make_phase_fns(
     # bug_compat_rng on its single-env test phase
     test_scale = cfg.train.test_num / cfg.train.train_num if cfg.train.bug_compat_rng and E == 1 else None
 
+    n_eval = cfg.train.test_num
+
     def test_phase(train_state: TrainState, buf_state: BufferState) -> LossOutputs:
-        # all test_num eval batches as one forward (see the module docstring)
-        n = cfg.train.test_num * test_buffer.sample_batch_size
-        batch = test_buffer.sample(buf_state, streams["eval"], batch_size=n)
-        vb = vae_batch_from_grouped(spec, batch.experience)
-        out = test_step(train_state, vb, streams["eval"], n_batches=cfg.train.test_num)
+        # the test_num eval batches as one forward, or as forwards over
+        # chunks of whole batches past EVAL_CHUNK_ROWS rows (see the module
+        # docstring); the draws are those of one forward: every sample, then
+        # every eps
+        n = n_eval * test_buffer.sample_batch_size
+        sampled = test_buffer.sample(buf_state, streams["eval"], batch_size=n).experience
+        batch_rows = tree_leaves(sampled)[0].shape[0] // n_eval  # this rank's rows of one eval batch
+        chunk = max(1, EVAL_CHUNK_ROWS // batch_rows)
+        eps, eps_s = draw_eps(train_state.model, streams["eval"], n_eval * batch_rows * D, n_eval)
+        outs = []
+        for lo in range(0, n_eval, chunk):
+            k = min(chunk, n_eval - lo)
+            part = slice(lo * batch_rows, (lo + k) * batch_rows)
+            vb = vae_batch_from_grouped(spec, tree_map(lambda x: x[part], sampled))
+            o = test_step(train_state, vb, None, eps[part], None if eps_s is None else eps_s[part], n_batches=k)
+            outs.append((o, k))
+        if len(outs) == 1:
+            out = outs[0][0]
+        else:  # a mean over equal batches: the chunks' means weighted by their batch counts
+            out = LossOutputs(*(sum(o[i] * k for o, k in outs) / n_eval for i in range(len(LossOutputs._fields))))
         if test_scale is not None:
             # the sum of the test_num per-batch means over train_num
             out = LossOutputs(*(x * test_scale for x in out))
@@ -513,10 +608,11 @@ def make_epoch_fn(
     test_buffer: ItemBuffer,
     cfg: ExperimentConfig,
     streams: Dict[str, torch.Generator],
+    mesh=None,
 ):
     """One epoch: EpochCarry -> (EpochCarry, EpochMetrics); batched when
-    ``train.n_envs`` > 1 (see ``make_phase_fns``)."""
-    collect, train_phase, test_phase = make_phase_fns(env, spec, buffer, test_buffer, cfg, streams)
+    ``train.n_envs`` > 1, and sharded over ``mesh`` (see ``make_phase_fns``)."""
+    collect, train_phase, test_phase = make_phase_fns(env, spec, buffer, test_buffer, cfg, streams, mesh)
 
     def epoch(carry: EpochCarry) -> Tuple[EpochCarry, EpochMetrics]:
         env_c, buf_state = collect(carry.env, carry.buffer_state, buffer)

@@ -32,6 +32,8 @@ from mfvae_tpu_torch.config import LossConfig
 from mfvae_tpu_torch.data.transitions import GroupedTransition
 from mfvae_tpu_torch.models.losses import LossOutputs, _elem_loss, combine_losses, twohot_ce_rows
 from mfvae_tpu_torch.models.mavae import AgentSpec, GroupedBatch, agent_order_concat, state_to_grouped
+from mfvae_tpu_torch.parallel.dp import mean_over_data
+from mfvae_tpu_torch.parallel.mesh import DATA_AXIS
 from mfvae_tpu_torch.training.trainer import _kl_scale, apply_update
 
 
@@ -66,10 +68,16 @@ def make_unroll_loss_fn(
     stop_gradient: bool = False,
     mean_feedback: bool = False,
     s_col_weight=None,
+    mesh=None,
 ) -> Callable:
     """``loss_fn(model, wbatch, generator=None, kl_scale=None, eps=None,
     eps_shared=None) -> LossOutputs`` over a window batch (a
-    GroupedTransition with leaves [B, W, ...])."""
+    GroupedTransition with leaves [B, W, ...]).
+
+    With a ``mesh`` of n > 1 data ranks the windows are this rank's and the
+    pools are the global batch's: the valid-slot counts are summed over
+    'data' and the rank's sums scaled by n, so the mean of the ranks'
+    losses (and of their gradients) is the global pooled loss."""
     W = int(unroll_steps)
     if W < 1:
         raise ValueError(f"unroll_steps must be >= 1, got {unroll_steps}")
@@ -122,6 +130,10 @@ def make_unroll_loss_fn(
                 fb = fb.detach()
             obs = state_to_grouped(spec, fb)
         s_sum, r_sum, kl_sum, w_sum, sw_sum = torch.stack(sums).sum(dim=0)
+        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+            n = mesh.shape[DATA_AXIS]
+            w_sum, sw_sum = mesh.all_reduce(torch.stack([w_sum, sw_sum]).detach(), DATA_AXIS)
+            s_sum, r_sum, kl_sum = n * s_sum, n * r_sum, n * kl_sum
         total_w = torch.clamp(w_sum, min=1.0)
         return combine_losses(
             s_sum / torch.clamp(sw_sum, min=1.0), r_sum / total_w, kl_sum / total_w, loss_cfg, kl_scale
@@ -139,11 +151,13 @@ def make_unroll_train_step(
     stop_gradient: bool = False,
     mean_feedback: bool = False,
     s_col_weight=None,
+    mesh=None,
 ) -> Callable:
     """``(state, wbatch, generator=None, eps=None, eps_shared=None) ->
     (state, LossOutputs)``: one Adam update on the multi-step objective
     (with the global-norm clip and KL annealing of the one-step step).
-    ``wbatch`` comes from ``ItemBuffer.sample_window``."""
+    ``wbatch`` comes from ``ItemBuffer.sample_window``; with a ``mesh`` it
+    holds this data rank's windows (``make_train_step`` says the rest)."""
     if mode != "Adam":
         raise NotImplementedError(
             "unroll_steps > 1 supports train.mode='Adam' only (PopArt reward "
@@ -154,11 +168,13 @@ def make_unroll_train_step(
             "unroll_steps > 1 is incompatible with model.use_pallas (the "
             "fused kernel is a one-step program)"
         )
-    loss_fn = make_unroll_loss_fn(spec, loss_cfg, unroll_steps, stop_gradient, mean_feedback, s_col_weight)
+    loss_fn = make_unroll_loss_fn(spec, loss_cfg, unroll_steps, stop_gradient, mean_feedback, s_col_weight, mesh)
+    dp = mesh is not None and mesh.shape[DATA_AXIS] > 1
 
     def train_step(state, wbatch: GroupedTransition, generator=None, eps=None, eps_shared=None):
         out = loss_fn(state.model, wbatch, generator, _kl_scale(loss_cfg, state.step), eps, eps_shared)
-        apply_update(state, out.loss)
-        return state, LossOutputs(*(x.detach() for x in out))
+        apply_update(state, out.loss, mesh)
+        out = LossOutputs(*(x.detach() for x in out))
+        return state, mean_over_data(out, mesh) if dp else out
 
     return train_step

@@ -129,18 +129,6 @@ def test_cuda_default_raises_without_a_card(monkeypatch):
         Experiment(parity_small("/nonexistent"))
 
 
-@pytest.mark.parametrize("override,item", [
-    ("train.n_envs=2 mesh.enable=true", "M17"), ("mesh.enable=true", "M17"),
-])
-def test_unported_options_refused(tmp_path, override, item):
-    cfg, device = parse_args([REFERENCE_YAML, *override.split(), "--device", "cpu"])
-    cfg.env.num_good_agents, cfg.env.num_adversaries, cfg.env.num_obs = 1, 1, 1
-    cfg.train.log_dir = str(tmp_path)
-    cfg.train.checkpoint_dir = ""
-    with pytest.raises(NotImplementedError, match=item):
-        Experiment(cfg, device).setup()
-
-
 @pytest.mark.parametrize("fused_epoch,n_envs,refused", [(False, 1, True), (True, 1, False), (False, 2, False)])
 def test_epochs_per_dispatch_needs_the_fused_epoch(tmp_path, fused_epoch, n_envs, refused):
     """As in the JAX package's setup: epochs_per_dispatch > 1 on the

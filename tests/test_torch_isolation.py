@@ -41,5 +41,8 @@ def test_scan_sees_the_whole_package():
                  "mfvae_tpu_torch/training/host_experiment.py", "mfvae_tpu_torch/data/compat.py",
                  "mfvae_tpu_torch/data/synthetic.py", "mfvae_tpu_torch/models/vae.py",
                  "mfvae_tpu_torch/models/factorized.py", "mfvae_tpu_torch/training/vae_trainer.py",
-                 "mfvae_tpu_torch/training/vae_experiment.py", "chip_smoke.py"):
+                 "mfvae_tpu_torch/training/vae_experiment.py", "mfvae_tpu_torch/parallel/__init__.py",
+                 "mfvae_tpu_torch/parallel/mesh.py", "mfvae_tpu_torch/parallel/sharding.py",
+                 "mfvae_tpu_torch/parallel/tp.py", "mfvae_tpu_torch/parallel/dp.py",
+                 "mfvae_tpu_torch/parallel/pp.py", "chip_smoke.py"):
         assert must in names
