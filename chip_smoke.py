@@ -169,7 +169,7 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    float32): the card's mean_call within 1e-5 of the CPU's (over the
    largest output), export -> import and the numpy pickle round trip
    bit-equal, a pickle of another class refused.
-23. (No phase: the kernel list moved to 25.)
+23. (No phase: the kernel list moved to 25, then to 26.)
 24. Scale-out at full width (simple_tag 30/10/20, 40 agents), printed
    beside the card's name and power limit.  (a) examples/data_parallel.yaml
    (8 envs, batch 4,096) with model.use_pallas=true for 2 epochs through
@@ -191,9 +191,22 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    unpipelined model.  The collectives that gloo refuses for CUDA tensors,
    staged through pinned host memory, are printed.  Each rank and each
    process group has a timeout; a rank that dies or hangs fails the script.
-25. The kernel list as one JSON line, the card, and the result line.
+25. The reference-style path at full width (the default config:
+   simple_tag 30/10/20, batch 128, bf16, model.use_pallas=true): the port's
+   data/compat.py TransitionBuffer filled from the card's env with random
+   actions, sampled, and create_dataset's per-agent dicts built with the
+   Experiment's codebook.  (a) model(idx_state, actions, g) bit-equal to
+   model(*group_dict_batch(...), g) from the same generator state.  (b) 3
+   Adam steps on fused_call(*group_dict_batch(...)) with K3 on both losses;
+   before each, a step of the plain dict call from a copy of the same
+   state and generator state; each step's losses within rtol 1e-4.  (c) A permuted codebook (agent i reads
+   id 39 - i from its data): fused_call's forward on the card against the
+   CPU's (recon_state within 2^-7 of its largest, the losses within rtol
+   2^-7, the model's bf16 tolerance), and unlike the positional forward.
+   Launches K1 = 5, K2 = 3, K3 = 10.
+26. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-22 and 24 print their epoch walls, launches and losses.
+Phases 4-22, 24 and 25 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -1647,6 +1660,162 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------- 25. the reference's dicts
+REFERENCE_STEPS = 3  # Adam steps by each route in phase 25
+BF16_RTOL = 2.0 ** -7  # the model's standing bfloat16 tolerance (tests/test_torch_model.py)
+
+
+def reference_dicts_phase(dev) -> dict:
+    """Phase 25: the reference-style path at full width (the default
+    config: simple_tag 30/10/20, batch 128, bf16, use_pallas=true).  The
+    port's TransitionBuffer filled from the card's env, create_dataset's
+    dicts into the model.  Returns the phase's numbers and its launches."""
+    import torch
+
+    from mfvae_tpu_torch.config import ExperimentConfig
+    from mfvae_tpu_torch.data.compat import TransitionBuffer
+    from mfvae_tpu_torch.data.transitions import create_dataset
+    from mfvae_tpu_torch.models.losses import combine_losses, elbo_losses
+    from mfvae_tpu_torch.models.mavae import MAVAE, group_dict_batch
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.experiment import Experiment
+    from mfvae_tpu_torch.training.trainer import apply_update, create_train_state, make_action_sampler
+
+    t_phase = time.perf_counter()
+    cfg = ExperimentConfig()
+    cfg.model.use_pallas = True
+    exp = Experiment(cfg, dev)  # the env, the spec and the codebook; no run
+    env, spec, loss_cfg = exp.env, exp.spec, cfg.loss
+    b = cfg.buffer.batch_size
+    check((cfg.env.name, cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs, b,
+           cfg.model.compute_dtype, spec.n_agents, sum(spec.obs_dims))
+          == ("MPE_simple_tag_v3", 30, 10, 20, 128, "bfloat16", 40, 5660),
+          "phase 25 runs the default config: simple_tag 30/10/20, batch 128, bf16, 40 agents, Σobs 5,660")
+    out = {}
+    ops.reset_launch_counts()
+
+    # the reference's buffer, filled from the card's env with random actions
+    g = torch.Generator(device=dev).manual_seed(25)
+    sample_actions, _ = make_action_sampler(env, spec)
+    buf = TransitionBuffer(max_length=4 * b, min_length=b, batch_size=b)
+    obs, state = env.reset(g)
+    t0 = time.perf_counter()
+    for t in range(b + 32):
+        acts = sample_actions(g)
+        act = {a: acts[i] for i, a in enumerate(env.agents)}
+        nobs, state, rew, done, _ = env.step(state, act)
+        (buf.add_trans if t else buf.init_buffer)(obs, rew, act, nobs, done)
+        obs = nobs
+    torch.cuda.synchronize()
+    out["fill_s"] = time.perf_counter() - t0
+    check(buf.can_sample() is True, "the TransitionBuffer cannot sample after its fill")
+    rows = [buf.sample(g).experience for _ in range(REFERENCE_STEPS)]
+    data = [create_dataset(r, exp.codebook) for r in rows]
+    idx_state, actions, rewards, next_states = data[0]
+    check(idx_state[env.agents[0]].device.type == "cuda", "create_dataset's dicts are not on the card")
+
+    init = MAVAE.from_config(cfg.model, spec, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    init_sd = {k: v.detach().clone() for k, v in init.state_dict().items()}
+
+    def fresh(device=dev):
+        model = MAVAE.from_config(cfg.model, spec, device=device)
+        model.load_state_dict(init_sd)
+        return model
+
+    # (a) the dict call against the grouped call on group_dict_batch's ids
+    with torch.no_grad():
+        out_d = init(idx_state, actions, torch.Generator(device=dev).manual_seed(1))
+        out_g = init(*group_dict_batch(spec, idx_state, actions), torch.Generator(device=dev).manual_seed(1))
+    check(all(torch.equal(x, y) for x, y in zip(out_d, out_g)),
+          "the dict call differs from the grouped call on group_dict_batch's ids")
+    check(tuple(out_d[0].shape) == (b, 5660) and tuple(out_d[1].shape) == (b, 40)
+          and tuple(out_d[2].shape) == (b, 40 * cfg.model.obs_features)
+          and all(bool(torch.isfinite(x).all()) for x in out_d), "the dict call's outputs: shapes or values")
+    print(f"[25] TransitionBuffer filled with {b + 32} card env steps in {out['fill_s']:.2f} s; "
+          f"model(idx_state, actions, g) bit-equal to model(*group_dict_batch(...), g)", flush=True)
+
+    # (b) Adam steps by the kernel route (fused_call on the dicts' ids, K3);
+    # before each, the plain route's step from a copy of the same state and
+    # generator state.  Held per step, as the main path's routes are: two
+    # trajectories drift apart, since Adam's first updates are about
+    # lr * sign(g), and a gradient near 0 takes either sign by route (a
+    # 3-step trajectory's s_loss reached 9.3e-5 on the card)
+    def step(state, d, gen, use_pallas: bool):
+        idx, act, rew, nxt = d
+        if use_pallas:
+            rs, rr, kl_rows = state.model.fused_call(*group_dict_batch(spec, idx, act), gen)
+            o = combine_losses(ops.huber_mean(nxt, rs, loss_cfg.huber_delta),
+                               ops.huber_mean(rew, rr, loss_cfg.huber_delta),
+                               torch.mean(torch.sum(kl_rows, dim=1)), loss_cfg)
+        else:
+            rs, rr, mu, lv = state.model(idx, act, gen)
+            o = elbo_losses(rs, rr, nxt, rew, mu, lv, loss_cfg)
+        apply_update(state, o.loss)
+        return [float(x.detach()) for x in o]
+
+    losses = {False: [], True: []}
+    state = create_train_state(fresh(), cfg.train)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for d in data:
+        twin, twin_gen = copy.deepcopy(state), torch.Generator(device=dev)
+        twin_gen.set_state(gen.get_state())
+        losses[False].append(step(twin, d, twin_gen, False))
+        losses[True].append(step(state, d, gen, True))
+    del twin
+    gap = max(abs(p - q) / abs(p) for sp, sq in zip(losses[False], losses[True]) for p, q in zip(sp, sq))
+    out["adam_losses"] = {"plain": losses[False], "kernels": losses[True], "max_rel_gap": gap}
+    print(f"[25] {REFERENCE_STEPS} Adam steps on the dicts, each by both routes from one state, loss by step: plain "
+          f"{[round(s[0], 7) for s in losses[False]]} kernels {[round(s[0], 7) for s in losses[True]]}; "
+          f"largest relative gap over loss, s_loss, r_loss, kl_loss {gap:.3e} (rtol 1e-4)", flush=True)
+    check(gap <= 1e-4, f"the dict path's kernel and plain routes differ by {gap:.3e} (rtol 1e-4)")
+
+    # (c) a permuted codebook: the ids read from the data differ from the
+    # positions; the kernel route's forward on the card against the CPU's
+    n = spec.n_agents
+    permuted = {a: n - 1 - i for i, a in enumerate(env.agents)}
+    idx_p, act_p, rew_p, nxt_p = create_dataset(rows[0], permuted)
+    batch_p, ids_p = group_dict_batch(spec, idx_p, act_p)
+    want_ids = [[n - 1 - i for i in idxs] for _, idxs in spec.groups]
+    check([i[0].tolist() for i in ids_p] == want_ids, "group_dict_batch did not read the permuted ids")
+    eps = torch.randn(b, n, cfg.model.obs_features, generator=torch.Generator().manual_seed(3))
+
+    def forward(model, batch, ids, rew, nxt, device):
+        with torch.no_grad():
+            rs, rr, kl_rows = model.fused_call(_to(batch, device), _to(ids, device), eps=eps.to(device))
+            o = combine_losses(ops.huber_mean(nxt.to(device), rs, loss_cfg.huber_delta),
+                               ops.huber_mean(rew.to(device), rr, loss_cfg.huber_delta),
+                               torch.mean(torch.sum(kl_rows, dim=1)), loss_cfg)
+        return rs.float().cpu(), [float(x) for x in o]
+
+    rs_card, l_card = forward(init, batch_p, ids_p, rew_p, nxt_p, dev)
+    rs_cpu, l_cpu = forward(fresh("cpu"), batch_p, ids_p, rew_p, nxt_p, "cpu")
+    batch_0, _ = group_dict_batch(spec, idx_state, actions)
+    rs_pos, l_pos = forward(init, batch_0, None, rewards, next_states, dev)
+    state_gap = float((rs_card - rs_cpu).abs().max()) / float(rs_cpu.abs().max())
+    loss_gap = max(abs(p - q) / abs(q) for p, q in zip(l_card, l_cpu))
+    moved = float((rs_card - rs_pos).abs().max()) / float(rs_pos.abs().max())
+    out["permuted"] = {"card_vs_cpu_state_over_largest": state_gap, "card_vs_cpu_loss_rel": loss_gap,
+                       "vs_positional_state_over_largest": moved, "loss_card": l_card, "loss_cpu": l_cpu,
+                       "loss_positional": l_pos}
+    print(f"[25] permuted codebook (agent i -> id {n - 1} - i): card vs CPU recon_state |diff| over its largest "
+          f"{state_gap:.3e}, losses rel {loss_gap:.3e} (rtol 2^-7); against the positional ids the recon_state "
+          f"moved {moved:.3e} of its largest", flush=True)
+    check(state_gap <= BF16_RTOL and loss_gap <= BF16_RTOL,
+          f"permuted ids: card and CPU differ beyond 2^-7 ({state_gap:.3e}, {loss_gap:.3e})")
+    check(moved > BF16_RTOL, "permuted ids gave the positional result: the ids read from the data were not used")
+
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = {"reparam_kl_fwd": REFERENCE_STEPS + 2, "reparam_kl_bwd": REFERENCE_STEPS,
+            "huber_mean": 2 * REFERENCE_STEPS + 4}
+    print(f"[25] launches {launches} (the kernel route's {REFERENCE_STEPS} steps and 2 forwards)", flush=True)
+    check(launches == want, f"phase 25: launch counts {launches}, expected {want}")
+    out["launches"] = {"reference dicts: Adam steps + permuted ids": launches}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[25] phase wall {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -2289,7 +2458,12 @@ def main() -> None:
         path_launches.update(scaleout_out["launches"])
         print(f"[24] scale-out summary: {json.dumps(scaleout_out)}")
 
-    # ------------------------------------------------------ 25. the kernel list
+    # ------------------------------------------- 25. the reference's dicts
+    reference_out = reference_dicts_phase(dev)
+    path_launches.update(reference_out.pop("launches"))
+    print(f"[25] reference dicts summary: {json.dumps(reference_out)}")
+
+    # ------------------------------------------------------ 26. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -2307,11 +2481,11 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
         })
     rk = kernels["K3_reward"]
-    print(f"[25] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[26] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
     for label, w in walls.items():
-        print(f"[25] per-epoch wall ms, {label}: {w}")
-    print(f"[25] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[26] per-epoch wall ms, {label}: {w}")
+    print(f"[26] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,18 @@ class Embedding(nn.Module):
     def forward(self, indices):
         return self.embedding[indices.long()].to(self.dtype)
 
+    def take(self, indices):
+        """The lookup with ``jnp.take``'s rule, as the JAX package's
+        ``Embedding`` reads indices from data: a negative index counts from
+        the end, and a row out of range is NaN (not an error on the host
+        or an assert on the card)."""
+        n = self.embedding.shape[0]
+        idx = indices.long()
+        idx = torch.where(idx < 0, idx + n, idx)
+        inside = (idx >= 0) & (idx < n)
+        rows = self.embedding[idx.clamp(0, n - 1)]
+        return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan"))).to(self.dtype)
+
 
 class StackedDense(nn.Module):
     """A dense layer with a leading stack (agent) axis on its parameters:

@@ -8,7 +8,10 @@ trunk (``fused_decoders``, the default) or as two MLPs.  Every model
 option of the JAX package is here: ``det_features``, the
 ``shared_private`` latent with its product of experts, ``residual_state``,
 ``state_skip``, ``decoder_layernorm``, the two-hot reward head,
-``reward_head_input='pred_state'`` and ``action_delta_head``.
+``reward_head_input='pred_state'`` and ``action_delta_head``.  Besides
+a ``GroupedBatch``, the model takes the reference's per-agent
+``idx_state``/``actions`` dicts (``group_dict_batch``), reading each
+agent's embedding index from column 0 of its data.
 
 Noise: the JAX model draws eps from a key inside the call.  Here every
 sampling call takes an optional explicit ``eps`` [B, A, F] in *grouped*
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -73,6 +76,14 @@ class AgentSpec:
     @property
     def n_agents(self) -> int:
         return len(self.agents)
+
+    @property
+    def obs_dim_map(self) -> Dict[str, int]:
+        return dict(zip(self.agents, self.obs_dims))
+
+    @property
+    def act_dim_map(self) -> Dict[str, int]:
+        return dict(zip(self.agents, self.act_dims))
 
     @cached_property
     def groups(self) -> Tuple[Tuple[Tuple[int, int], Tuple[int, ...]], ...]:
@@ -126,6 +137,27 @@ class GroupedBatch(NamedTuple):
 
     obs: Tuple[torch.Tensor, ...]
     actions: Tuple[torch.Tensor, ...]
+
+
+def group_dict_batch(
+    spec: AgentSpec,
+    idx_state: Dict[str, torch.Tensor],
+    actions: Dict[str, torch.Tensor],
+) -> Tuple[GroupedBatch, Tuple[torch.Tensor, ...]]:
+    """Stack the reference's per-agent dicts into grouped tensors.
+
+    ``idx_state[agent]`` is [B, 1+obs_dim] with the agent index as column 0
+    (the reference's create_dataset contract, jax_ver/trainer.py:23).
+    Returns the grouped batch plus per-group [B, A_g] int32 agent indices
+    read from the data by floor and a cast, as the reference reads them
+    (jax_ver/model.py:152-153), on the data's device."""
+    obs_g, act_g, ids_g = [], [], []
+    for _, idxs in spec.groups:
+        names = [spec.agents[i] for i in idxs]
+        obs_g.append(torch.stack([idx_state[a][:, 1:] for a in names], dim=1))
+        ids_g.append(torch.stack([torch.floor(idx_state[a][:, 0]).to(torch.int32) for a in names], dim=1))
+        act_g.append(torch.stack([actions[a] for a in names], dim=1))
+    return GroupedBatch(obs=tuple(obs_g), actions=tuple(act_g)), tuple(ids_g)
 
 
 def agent_order_concat(spec: AgentSpec, grouped: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -271,9 +303,10 @@ class MAVAE(nn.Module):
             obs = batch.obs[g]
             if agent_ids is None:
                 ids = torch.tensor(idxs, device=obs.device)[None, :].expand(obs.shape[0], -1)
+                emb = self.idx_emb(ids)
             else:
-                ids = agent_ids[g]
-            enc_in = torch.cat([self.idx_emb(ids), obs.to(self.dtype)], dim=-1)
+                emb = self.idx_emb.take(agent_ids[g])  # ids from data: JAX's rule
+            enc_in = torch.cat([emb, obs.to(self.dtype)], dim=-1)
             latent = self.encoders[g](enc_in)  # [B, A_g, 2F (+2S) (+D)]
             mus.append(latent[..., :f])
             logvars.append(latent[..., f : 2 * f])
@@ -453,8 +486,15 @@ class MAVAE(nn.Module):
         return recon_state, recon_reward
 
     # ------------------------------------------------------------------ call
-    def forward(self, batch: GroupedBatch, agent_ids=None,
+    def forward(self, batch: Union[GroupedBatch, Dict[str, torch.Tensor]], agent_ids=None,
                 generator: Optional[torch.Generator] = None, eps=None, eps_shared=None):
+        """(recon_state [B, Σobs], recon_reward [B, A], mu, logvar [B, A*F
+        (+S)]) in agent order.  ``batch`` is a GroupedBatch, with optional
+        per-group ``agent_ids``; or the reference's ``idx_state`` dict
+        (create_dataset's), and then the second argument is its actions
+        dict and the agent ids are read from the data (``group_dict_batch``)."""
+        if isinstance(batch, dict):
+            batch, agent_ids = group_dict_batch(self.spec, batch, agent_ids)
         mu_g, logvar_g, aemb_g, experts, det = self.encode(batch, agent_ids)
         z_g = self.reparameterize(mu_g, logvar_g, self._eps(generator, mu_g.shape, eps))
         mu, logvar, aemb, z, det = self._to_agent_order(mu_g, logvar_g, aemb_g, z_g, det)

@@ -6,6 +6,11 @@ training carry flattened by ``training/experiment.py`` — written to
 mid-write never leaves a truncated checkpoint under the final name.  It is
 read back with ``weights_only=True`` onto the CPU; the caller moves it to
 its device.
+
+``restore`` takes the JAX package's ``like=`` and does not need it: orbax
+restores against a template of shapes and dtypes, while a torch payload
+describes itself.  Saves are synchronous, so ``wait`` and ``close`` have
+nothing in flight to wait for.
 """
 
 from __future__ import annotations
@@ -21,20 +26,24 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 class NullCheckpointManager:
-    """Checkpointing disabled (train.checkpoint_dir='')."""
+    """Checkpointing disabled (train.checkpoint_dir='').  Same surface as
+    CheckpointManager; save/wait/close are no-ops, restore finds nothing."""
 
     directory = None
 
     def save(self, step, payload) -> None:
         pass
 
-    def restore(self, step=None):
+    def restore(self, step=None, like=None):
         return None
 
     def latest_step(self):
         return None
 
     def wait(self):
+        pass
+
+    def close(self):
         pass
 
 
@@ -60,9 +69,12 @@ class CheckpointManager:
         for old in self.steps()[: -self.max_to_keep]:
             self._path(old).unlink(missing_ok=True)
 
-    def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+    def restore(self, step: Optional[int] = None, like: Optional[Dict[str, Any]] = None
+                ) -> Optional[Dict[str, Any]]:
         """Load ``step`` (default: the latest) onto the CPU; None if there
-        is no checkpoint."""
+        is no checkpoint.  ``like`` (the JAX package's restore template) is
+        accepted and unused: the payload carries its own shapes and dtypes."""
+        del like
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -75,3 +87,8 @@ class CheckpointManager:
 
     def wait(self):
         """Saves are synchronous; kept for the JAX package's surface."""
+
+    def close(self):
+        """Waits for any save in flight (none: saves are synchronous) and
+        releases the manager; a second close is harmless."""
+        self.wait()

@@ -121,6 +121,8 @@ class Experiment:
             discrete_actions=cfg.env.discrete_actions,
         )
         self.spec = build_spec(self.env)
+        # the reference's agent -> embedding index map, for create_dataset
+        self.codebook = {a: i for i, a in enumerate(self.env.agents)}
         self.buffer = ItemBuffer(
             max_length=cfg.buffer.max_size,
             min_length=cfg.buffer.min_size,

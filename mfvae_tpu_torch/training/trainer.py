@@ -110,6 +110,10 @@ class TrainState:
     step: int = 0
 
 
+# the JAX package's name for the MAVAE train state
+VaeTrainState = TrainState
+
+
 def create_train_state(model: MAVAE, cfg: TrainConfig) -> TrainState:
     # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8, the same update rule
     lr_fn = make_lr(cfg)
