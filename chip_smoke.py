@@ -169,7 +169,7 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    float32): the card's mean_call within 1e-5 of the CPU's (over the
    largest output), export -> import and the numpy pickle round trip
    bit-equal, a pickle of another class refused.
-23. (No phase: the kernel list moved to 25, then to 26.)
+23. (No phase: the kernel list moved to 25, then to 26, then to 27.)
 24. Scale-out at full width (simple_tag 30/10/20, 40 agents), printed
    beside the card's name and power limit.  (a) examples/data_parallel.yaml
    (8 envs, batch 4,096) with model.use_pallas=true for 2 epochs through
@@ -204,9 +204,28 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    CPU's (recon_state within 2^-7 of its largest, the losses within rtol
    2^-7, the model's bf16 tolerance), and unlike the positional forward.
    Launches K1 = 5, K2 = 3, K3 = 10.
-26. The kernel list as one JSON line, the card, and the result line.
+26. The measurement entry points (mfvae_tpu_torch/bench/) at full width,
+   printed beside the card's name and power limit.  (a) python -m
+   mfvae_tpu_torch.bench's run, each row a few steps: every key of
+   bench.py's output (read from its source as text) and the port's
+   extras, null only where "absent" names the key, every number finite
+   and positive, the JSON naming the card.  (b) perf_matrix (its
+   population rows at 80 agents only), mfu_ceiling (big_4096 included) and
+   pallas_probe, a few steps a row: each row with perf_matrix.py's row keys,
+   its MFU and its peak device memory.  (c) bench_inference (predict and
+   rollout at B = 1, 64, 1,024; the four actors over 4 episodes of 2 steps)
+   and native_env_bench.  (d) At pallas_probe's shape, det128 b4096, one
+   train step by the plain route and one by K1-K3 from copies of one state
+   and one generator state: the losses within rtol 1e-4.  Launches over
+   (a)-(d): K1 = K2 = the kernel-route rows' steps + 1, K3 twice that.
+   (e) K3 alone at n = 4,096 x 5,660 = 23,183,360 in float32 and bfloat16
+   against its plain version (rtol 1e-5, atol 0, as phase 3), twice
+   bit-equal.  (f) K1-K3 at the b4096 shapes ([163,840, 64] latents, the
+   state and reward branches of K3): each held against its plain version
+   on the same tensors with phase 3's gates, then timed as in phase 3.
+27. The kernel list as one JSON line, the card, and the result line.
 
-Phases 4-22, 24 and 25 print their epoch walls, launches and losses.
+Phases 4-22 and 24-26 print their epoch walls, launches and losses.
 """
 
 import copy
@@ -1816,6 +1835,197 @@ def reference_dicts_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------- 26. the measurement entry points
+# iteration counts of phase 26's cut runs (full widths): a few steps a row
+BENCH_CUT = dict(n_scan=3, n_pipelined=3, n_wall=2, n_multiseed=2, n_scaling=2, n_unroll=2, n_epochs=2,
+                 reps=1, reps_rows=1, warmup=1)
+MEASURE_CUT = dict(n_scan=3, reps=1, warmup=1)
+INFERENCE_CUT = dict(n_predict=3, n_latency=3, n_rollout=2, reps=1, n_episodes=4, ep_len=2)
+NATIVE_CUT = dict(n_single=200, n_batched=20, n_envs=64, n_local=10)
+K3_B4096_N = 4096 * 5660  # K3's state tensor at pallas_probe's b4096
+
+
+def bench_phase(dev, smi: str, median_ms, bound) -> dict:
+    """Phase 26: each entry point of mfvae_tpu_torch/bench/ once at full
+    width with cut counts, one det128 b4096 train step by each route, then
+    K3 alone at b4096's state size, and K1-K3 timed at b4096's shapes.
+    Returns the phase's numbers and its launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfvae_tpu_torch.bench import __main__ as bench_main
+    from mfvae_tpu_torch.bench import bench_inference, flagship, mfu_ceiling, native_env_bench, pallas_probe, perf_matrix
+    from mfvae_tpu_torch.bench.common import source_dict_keys
+    from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    out = {"walls_s": {}}
+    print(f"[26] card: {smi}", flush=True)
+    ops.reset_launch_counts()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        out["walls_s"][name] = time.perf_counter() - t0
+        return r
+
+    def on_card(obj: dict, what: str):
+        d = obj["device"]
+        check(d["platform"] == "gpu" and d["kind"] == torch.cuda.get_device_name(0) and d["nvidia_smi"] == smi,
+              f"{what}: the JSON does not name the card ({d})")
+
+    # (a) bench.py's counterpart: every key of bench.py's out, measured here
+    b = timed("bench", lambda: bench_main.run(dev, **BENCH_CUT))
+    jax_keys = source_dict_keys(root / "bench.py", "main", "out")
+    extra = set(b) - jax_keys
+    check(jax_keys <= set(b) and extra == {"absent", "device", "peak_flops", "step_flops_source", "mfu_pct_note",
+                                           "multiseed_4x_discipline", "counts"},
+          f"bench: keys differ from bench.py's: missing {jax_keys - set(b)}, extra {extra}")
+    nulls = {k for k, v in b.items() if v is None}
+    check(nulls == set(b["absent"]), f"bench: null keys {sorted(nulls)} are not the absent ones {sorted(b['absent'])}")
+    numbers = [v for k, v in b.items() if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    numbers += [x for row in b["batch_scaling"].values() for x in row.values()]
+    check(all(math.isfinite(v) and v > 0 for v in numbers), "bench: a number is not finite and positive")
+    on_card(b, "bench")
+    print(f"[26] bench: value {b['value']:.1f} samples/s ({b['value_discipline']}), mfu_pct {b['mfu_pct']:.3f}, "
+          f"wall epoch {b['wall_epoch_seconds']:.4f} s, step_flops {b['step_flops']}", flush=True)
+    out["bench"] = {k: b[k] for k in ("value", "mfu_pct", "wall_epoch_seconds", "step_flops")}
+
+    # (b) the three scripts sharing measure(): the same row keys as JAX's
+    row_keys = source_dict_keys(root / "scripts" / "perf_matrix.py", "measure", "row")
+    rows = []
+    for name, fn, table in (
+        ("perf_matrix", lambda: perf_matrix.run(dev, populations=((60, 20),), **MEASURE_CUT), "matrix"),
+        ("mfu_ceiling", lambda: mfu_ceiling.run(dev, **MEASURE_CUT), "mfu_ceiling"),
+        ("pallas_probe", lambda: pallas_probe.run(dev, **MEASURE_CUT), "pallas_probe"),
+    ):
+        t = timed(name, fn)
+        on_card(t, name)
+        for r in t[table]:
+            check(set(r) - {"device", "compute_dtype", "route", "steps", "max_memory_allocated"} == row_keys,
+                  f"{name} {r['label']}: keys {sorted(r)}")
+            check(r["mfu_pct"] is not None and r["mfu_pct"] > 0 and r["max_memory_allocated"] > 0,
+                  f"{name} {r['label']}: mfu_pct or max_memory_allocated missing")
+            print(f"[26] {name} {r['label']} b{r['batch']} ({r['route']}): {r['ms_per_step']:.3f} ms a step, "
+                  f"mfu {r['mfu_pct']:.3f}%, peak {r['max_memory_allocated'] / 2**30:.3f} GiB", flush=True)
+        rows += t[table]
+    check([r["label"] for r in rows if r["route"] == "kernels"]
+          == ["pallas", "det128_b256_pallas", "det128_b4096_pallas"], "the kernel-route rows are not the three named")
+    kernel_steps = sum(r["steps"] for r in rows if r["route"] == "kernels")
+    out["rows"] = [{k: r[k] for k in ("label", "batch", "ms_per_step", "mfu_pct", "max_memory_allocated")}
+                   for r in rows]
+
+    # (c) serving and planning; the host engine
+    inf = timed("bench_inference", lambda: bench_inference.run(dev, **INFERENCE_CUT))
+    on_card(inf, "bench_inference")
+    check(len(inf) == 16 and all(math.isfinite(v) and v > 0 for k, v in inf.items() if k != "device"),
+          f"bench_inference: {sorted(inf)}")
+    nat = timed("native_env_bench", lambda: native_env_bench.run(dev, **NATIVE_CUT))
+    on_card(nat, "native_env_bench")
+    check(set(nat["native_env_bench"]) == set(native_env_bench.JAX_NAMES.values()) | {"speedup_single",
+                                                                                     "speedup_batched"},
+          f"native_env_bench: {sorted(nat['native_env_bench'])}")
+
+    # (d) pallas_probe's shape, det128 b4096: one train step by each route
+    # from copies of one state and one generator state
+    spec = flagship.flagship_spec()
+    model = flagship.build_model(ModelConfig(det_features=128), spec, dev)
+    batch = flagship.flagship_batch(spec, 4096, dev)
+    state = create_train_state(model, TrainConfig())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    losses = {}
+    for use_pallas in (False, True):
+        twin, twin_gen = copy.deepcopy(state), torch.Generator(device=dev)
+        twin_gen.set_state(gen.get_state())
+        _, o = make_train_step(LossConfig(), use_pallas=use_pallas)(twin, batch, twin_gen)
+        losses[use_pallas] = [float(x) for x in o]
+    del twin, state, model
+    gap = max(abs(p - q) / abs(p) for p, q in zip(losses[False], losses[True]))
+    out["b4096_routes"] = {"plain": losses[False], "kernels": losses[True], "max_rel_gap": gap}
+    print(f"[26] det128 b4096 one step: loss plain {losses[False][0]:.7f} kernels {losses[True][0]:.7f}; "
+          f"largest relative gap over loss, s_loss, r_loss, kl_loss {gap:.3e} (rtol 1e-4)", flush=True)
+    check(gap <= 1e-4, f"det128 b4096: the routes differ by {gap:.3e} (rtol 1e-4)")
+
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n = kernel_steps + 1
+    want = {"reparam_kl_fwd": n, "reparam_kl_bwd": n, "huber_mean": 2 * n}
+    print(f"[26] launches {launches}: the kernel-route rows' {kernel_steps} steps and the b4096 step", flush=True)
+    check(launches == want, f"phase 26: launch counts {launches}, expected {want}")
+    out["launches"] = {"bench: entry points + det128 b4096 routes": launches}
+
+    # (e) K3 alone at n = 4,096 x 5,660 (the multi-block grid, its arrival
+    # ticket over 528 partials on 132 SMs) in f32 and bf16, against its plain
+    # version; rtol 1e-5, atol 0: another summation order, as in phase 3
+    g = torch.Generator(device=dev).manual_seed(26)
+    out["k3_b4096"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (2 * torch.randn(K3_B4096_N, generator=g, device=dev)).to(dtype)
+        y = torch.randn(K3_B4096_N, generator=g, device=dev).to(dtype)
+        h, hp = ops._huber_mean_cuda(x, y, 1.0), ops._huber_mean_plain(x, y, 1.0)
+        err = float((h - hp).abs())
+        same = bool(torch.equal(ops._huber_mean_cuda(x, y, 1.0), h))
+        geo = ops.huber_geometry(x.data_ptr(), y.data_ptr(), K3_B4096_N, x.element_size(),
+                                 ops._huber_workspace(torch.cuda.current_stream().cuda_stream).numel() - 1)
+        name = str(dtype).removeprefix("torch.")
+        print(f"[26] K3 {name} n={K3_B4096_N} ({geo.blocks} blocks, vec {geo.vec}): {h.item():.7f} plain "
+              f"{hp.item():.7f} |err| {err:.3e} (rtol 1e-5); second call bit-equal {same}", flush=True)
+        check(err <= 1e-5 * abs(hp.item()), f"K3 {name} at n={K3_B4096_N} disagrees with its plain version")
+        check(same, f"K3 {name} at n={K3_B4096_N} gave two results")
+        out["k3_b4096"][name] = {"max_abs_err": err, "blocks": geo.blocks}
+
+    # (f) K1-K3 at the b4096 shapes: latents [4,096 x 40, 64]; K3 on the
+    # state branch (f32, as the step hands it) and the reward branch.  Each
+    # kernel's outputs are first held against its plain version on the same
+    # tensors with phase 3's gates (z, dmu, dlv rtol/atol 1e-6; the KL rtol
+    # 1e-5, atol 1e-6, another sum order; K3 rtol 1e-5, atol 0), then timed
+    r, f = 4096 * 40, 64
+    mu, lv, eps, gz = (torch.randn(r, f, generator=g, device=dev) for _ in range(4))
+    gkl = torch.randn(r, generator=g, device=dev)
+    xs, ys = 2 * torch.randn(K3_B4096_N, generator=g, device=dev), torch.randn(K3_B4096_N, generator=g, device=dev)
+    xr, yr = 2 * torch.randn(r, generator=g, device=dev), torch.randn(r, generator=g, device=dev)
+    cases = {  # kernel, plain, library, gates (rtol, atol) per output, bytes, operations
+        "K1": (lambda: ops._reparam_kl_fwd_cuda(mu, lv, eps), lambda: ops._fwd_rows_plain(mu, lv, eps), None,
+               {"z": (1e-6, 1e-6), "kl": (1e-5, 1e-6)}, 4 * (3 * r * f + r * f + r), 11 * r * f),
+        "K2": (lambda: ops._reparam_kl_bwd_cuda(mu, lv, eps, gz, gkl),
+               lambda: ops._bwd_rows_plain(mu, lv, eps, gz, gkl), None,
+               {"dmu": (1e-6, 1e-6), "dlv": (1e-6, 1e-6)}, 4 * (4 * r * f + r + 2 * r * f), 12 * r * f),
+        "K3": (lambda: ops._huber_mean_cuda(xs, ys, 1.0), lambda: ops._huber_mean_plain(xs, ys, 1.0),
+               lambda: F.huber_loss(xs, ys, reduction="mean", delta=1.0), {"mean": (1e-5, 0.0)},
+               4 * (2 * K3_B4096_N + 1), 8 * K3_B4096_N),
+        "K3_reward": (lambda: ops._huber_mean_cuda(xr, yr, 1.0), lambda: ops._huber_mean_plain(xr, yr, 1.0),
+                      lambda: F.huber_loss(xr, yr, reduction="mean", delta=1.0), {"mean": (1e-5, 0.0)},
+                      4 * (2 * r + 1), 8 * r),
+    }
+    out["kernels_b4096"] = {}
+    for name, (kernel, plain, library, gates, nbytes, nops) in cases.items():
+        got, want = kernel(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        errs = {}
+        for (what, (rtol, atol)), a, b in zip(gates.items(), got, want):
+            errs[what] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+                  f"{name} at b4096: {what} disagrees with its plain version by {errs[what]:.3e} "
+                  f"(rtol {rtol}, atol {atol})")
+        del got, want
+        bound_ms, bound_by = bound(nbytes, nops)
+        k = {"max_abs_err": max(errs.values()), "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+             "library_ms": None if library is None else median_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+        out["kernels_b4096"][name] = k
+        lib_us = "-" if k["library_ms"] is None else f"{1e3 * k['library_ms']:.2f} us"
+        gate = ", ".join(f"{w} {e:.3e} (rtol {gates[w][0]}, atol {gates[w][1]})" for w, e in errs.items())
+        print(f"[26] {name} at b4096: against plain max|err| {gate}; kernel {1e3 * k['ms']:.2f} us  "
+              f"plain {1e3 * k['plain_ms']:.2f} us  library {lib_us}  bound {1e3 * bound_ms:.2f} us ({bound_by})",
+              flush=True)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[26] entry point walls (s): {json.dumps(out['walls_s'])}; phase wall {out['phase_wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -2463,7 +2673,12 @@ def main() -> None:
     path_launches.update(reference_out.pop("launches"))
     print(f"[25] reference dicts summary: {json.dumps(reference_out)}")
 
-    # ------------------------------------------------------ 26. the kernel list
+    # ----------------------------------------- 26. the measurement entry points
+    bench_out = bench_phase(dev, smi, median_ms, bound)
+    path_launches.update(bench_out.pop("launches"))
+    print(f"[26] measurement entry points summary: {json.dumps(bench_out)}")
+
+    # ------------------------------------------------------ 27. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
         ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
@@ -2479,13 +2694,15 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
+            "at_b4096": bench_out["kernels_b4096"][key],
         })
     rk = kernels["K3_reward"]
-    print(f"[26] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
+    print(f"[27] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
+    print(f"[27] K3 at b4096's reward branch: {json.dumps(bench_out['kernels_b4096']['K3_reward'])}")
     for label, w in walls.items():
-        print(f"[26] per-epoch wall ms, {label}: {w}")
-    print(f"[26] script wall {time.perf_counter() - t_script:.1f} s")
+        print(f"[27] per-epoch wall ms, {label}: {w}")
+    print(f"[27] script wall {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -47,5 +47,10 @@ def test_scan_sees_the_whole_package():
                  "mfvae_tpu_torch/training/vae_experiment.py", "mfvae_tpu_torch/parallel/__init__.py",
                  "mfvae_tpu_torch/parallel/mesh.py", "mfvae_tpu_torch/parallel/sharding.py",
                  "mfvae_tpu_torch/parallel/tp.py", "mfvae_tpu_torch/parallel/dp.py",
-                 "mfvae_tpu_torch/parallel/pp.py", "chip_smoke.py", "scripts/torch_distill_seed_ci.py"):
+                 "mfvae_tpu_torch/parallel/pp.py", "mfvae_tpu_torch/bench/flagship.py",
+                 "mfvae_tpu_torch/bench/common.py", "mfvae_tpu_torch/bench/__main__.py",
+                 "mfvae_tpu_torch/bench/perf_matrix.py", "mfvae_tpu_torch/bench/mfu_ceiling.py",
+                 "mfvae_tpu_torch/bench/pallas_probe.py", "mfvae_tpu_torch/bench/bench_inference.py",
+                 "mfvae_tpu_torch/bench/native_env_bench.py", "chip_smoke.py",
+                 "scripts/torch_distill_seed_ci.py"):
         assert must in names
