@@ -252,6 +252,20 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+# K1-K3's launch counters (mfvae_tpu_torch/utils/profiling.py) and the kernel each counts
+KERNEL_COUNTERS = {"k1.launches": "reparam_kl_fwd_kernel", "k2.launches": "reparam_kl_bwd_kernel",
+                   "k3.launches": "huber_mean_kernel"}
+
+
+def launch_counts() -> dict:
+    """K1-K3's launch counters since the last ``reset_counters``, 0 where
+    a kernel has not launched."""
+    from mfvae_tpu_torch.utils import profiling
+
+    counted = profiling.counters()
+    return {k: counted.get(k, 0) for k in KERNEL_COUNTERS}
+
+
 def _to(x, dev):
     """Tensors, lists and (named) tuples of them, on ``dev``."""
     import torch
@@ -358,7 +372,7 @@ def behavior_phase(drive, examples: Path, tmp: str, dev):
     from mfvae_tpu_torch.config import BehaviorConfig, load_config
     from mfvae_tpu_torch.imagination import make_policy_actor
     from mfvae_tpu_torch.inference import WorldModel
-    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.utils import profiling
 
     on_card = torch.device(dev).type == "cuda"
     if on_card:
@@ -411,11 +425,11 @@ def behavior_phase(drive, examples: Path, tmp: str, dev):
         b.updates = 10
         if algo != "distill":  # the config defaults, not the distill recipe's 32 starts
             b.n_starts = BehaviorConfig().n_starts
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         result = behavior.train_behavior(exp)
         wall_s = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
+        launches = launch_counts()
         check(not any(launches.values()), f"behavior {algo} launched kernels: {launches}")
         out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in launches.items()}
         final = result.curve[-1]
@@ -625,9 +639,9 @@ def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
     from mfvae_tpu_torch.behavior import collect_start_states
     from mfvae_tpu_torch.config import load_config
     from mfvae_tpu_torch.inference import WorldModel
-    from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.training.experiment import build_spec
     from mfvae_tpu_torch.training.trainer import make_action_sampler
+    from mfvae_tpu_torch.utils import profiling
 
     cfg_dir = Path(__file__).resolve().parent / "mfvae_tpu_torch" / "baselines" / "config"
     torch.cuda.reset_peak_memory_stats()
@@ -651,7 +665,7 @@ def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
         """``updates`` updates of ``train``, timed one by one; learn timed
         alone on fresh windows.  Checks finite losses, a learn step by
         update 3 and no kernel launch."""
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         runner = train.init_runner(cfg.seed)
         rows, times = [], []
@@ -664,7 +678,7 @@ def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
                                             f"{runner.buffer_state.size})")
         wall_s = time.perf_counter() - t0
         check(all(math.isfinite(v) for r in rows for v in r.values()), f"{label}: non-finite metrics {rows[-1]}")
-        launches = dict(ops.LAUNCHES)
+        launches = launch_counts()
         check(not any(launches.values()), f"{label} launched kernels: {launches}")
         g = torch.Generator(device=dev).manual_seed(20)
         batch = train.buffer.sample(runner.buffer_state, g).experience
@@ -783,7 +797,7 @@ def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
         idx = torch.randint(0, pool[0].shape[0], (16,), generator=g, device=dev)
         return tuple(o[idx] for o in pool)
 
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     sp = {}
     for team, update, mine, opt, other in (("a", up_a, pa, opt_a, pb), ("b", up_b, pb, opt_b, pa)):
         frozen = {k: v.clone() for k, v in other.state_dict().items()}
@@ -794,7 +808,7 @@ def baselines_phase(drive, examples: Path, tmp: str, dev, wm_exp) -> dict:
         check(all(math.isfinite(float(v)) for v in m.values()), f"self-play team {team}: non-finite {m}")
         sp[team] = {"ms_per_update": ms, "ms_all": [round(x, 3) for x in times],
                     "final": {k: float(v) for k, v in m.items()}}
-    launches = dict(ops.LAUNCHES)
+    launches = launch_counts()
     check(not any(launches.values()), f"self-play launched kernels: {launches}")
     check(all((p.grad is None) if g0 is None else torch.equal(p.grad, g0)
               for p, g0 in zip(wm.model.parameters(), wm_grads)),
@@ -869,8 +883,8 @@ def host_phase(tmp: str, dev, policy: str) -> dict:
     from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides
     from mfvae_tpu_torch.envs import native_engine as ne
     from mfvae_tpu_torch.envs.host_adapter import NativeBatchedCollector
-    from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.training.host_experiment import HostExperiment
+    from mfvae_tpu_torch.utils import profiling
 
     out = {"launches": {}}
     t_phase = time.perf_counter()
@@ -909,10 +923,10 @@ def host_phase(tmp: str, dev, policy: str) -> dict:
         if "world_comm" in label:
             check(exp.spec.n_agents == 40 and exp.spec.act_dims[0] == 20 and len(exp.spec.groups) == 3,
                   "simple_world_comm is not at the default population")
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         exp.result = result = exp.run()
         torch.cuda.synchronize()
-        launches = dict(ops.LAUNCHES)
+        launches = launch_counts()
         out["launches"][f"host: {label}"] = launches
         check(not any(launches.values()), f"host {label} launched kernels: {launches}")
         check(math.isfinite(result["loss_train"]), f"host {label}: non-finite loss {result}")
@@ -991,9 +1005,9 @@ def vae_phase(tmp: str, dev) -> dict:
     1,000 steps each, and one step card against CPU."""
     import torch
 
-    from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.training import vae_experiment as ve
     from mfvae_tpu_torch.training.vae_trainer import create_vae_state, make_vae_train_step
+    from mfvae_tpu_torch.utils import profiling
 
     out = {}
     t_phase = time.perf_counter()
@@ -1001,9 +1015,9 @@ def vae_phase(tmp: str, dev) -> dict:
     for label, kw in runs:
         cfg = ve.VaeExperimentConfig(family=label.split()[0], log_dir=f"{tmp}/vae", run_name=label.replace(" ", "_"),
                                      **kw)
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         r = ve.run_vae_experiment(cfg)
-        check(not any(ops.LAUNCHES.values()), f"vae {label} launched kernels: {dict(ops.LAUNCHES)}")
+        check(not any(launch_counts().values()), f"vae {label} launched kernels: {launch_counts()}")
         check(math.isfinite(r["final_loss"]), f"vae {label}: non-finite loss ({r})")
         if cfg.free_bits:
             # the anneal starts the KL weight at 0 and the free bits floor the
@@ -1061,8 +1075,8 @@ def _trace_kernel_counts(trace_dir: Path) -> dict:
     events = json.loads(files[0].read_text())["traceEvents"]
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     check(bool(names), f"the trace {files[0].name} holds no device kernel events")
-    return {counter: sum(f"{counter}_kernel" in n for n in names)
-            for counter in ("reparam_kl_fwd", "reparam_kl_bwd", "huber_mean")} | {"all_kernels": len(names)}
+    return {counter: sum(kernel in n for n in names)
+            for counter, kernel in KERNEL_COUNTERS.items()} | {"all_kernels": len(names)}
 
 
 def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -> dict:
@@ -1084,11 +1098,12 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
     from mfvae_tpu_torch.training.experiment import Experiment
     from mfvae_tpu_torch.training.multiseed import run_multiseed
     from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+    from mfvae_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     print(f"[22] card: {smi}", flush=True)
     out, launches = {}, {}
-    want1 = {"reparam_kl_fwd": 10, "reparam_kl_bwd": 10, "huber_mean": 20}
+    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20}
 
     def full_width(cfg):
         check((cfg.env.name, cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs)
@@ -1107,10 +1122,10 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     ms = run_multiseed(cfg, [0, 1, 2, 3], device=dev)
     torch.cuda.synchronize()
-    launches["tooling: multiseed x4, 2 epochs"] = dict(ops.LAUNCHES)
+    launches["tooling: multiseed x4, 2 epochs"] = launch_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     want = {k: 8 * v for k, v in want1.items()}
     print(f"[22] multiseed seeds {ms['seeds']}: loss_train {ms['loss_train']} loss_test {ms['loss_test']}")
@@ -1167,7 +1182,7 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
     exp.run_epoch()  # a real buffer to draw the batch from
     batch = vae_batch_from_grouped(exp.spec, exp.buffer.sample(
         exp.carry.buffer_state, torch.Generator(device=dev).manual_seed(1)).experience)
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     for fused in (True, False):
         mcfg = copy.deepcopy(fused_cfg.model)
         mcfg.fused_decoders = fused
@@ -1199,7 +1214,7 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
         print(f"[22] remat, {label} decoders: one train step's peak device memory above its start "
               f"{peaks[True]:.3f} MiB with remat, {peaks[False]:.3f} MiB without")
         check(ok, f"remat changed the gradients of one train step ({label} decoders)")
-    launches["tooling: remat, 4 train steps"] = dict(ops.LAUNCHES)
+    launches["tooling: remat, 4 train steps"] = launch_counts()
     check(launches["tooling: remat, 4 train steps"] == {k: 4 * v // 10 for k, v in want1.items()},
           "remat: the 4 train steps with use_pallas did not launch K1-K3 4/4/8 times")
     del exp, models, batch
@@ -1449,10 +1464,10 @@ def _scaleout_rank(rank: int, port: int, out_dir: str, examples: str) -> None:
     import torch
     import torch.distributed as dist
 
-    from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.parallel.mesh import init_distributed
     from mfvae_tpu_torch.parallel.pp import make_pipe_mesh
     from mfvae_tpu_torch.training.experiment import Experiment
+    from mfvae_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1469,10 +1484,10 @@ def _scaleout_rank(rank: int, port: int, out_dir: str, examples: str) -> None:
         check(exp.mesh.shape == {"data": 2, "model": 1} and exp.carry.env.obs[0].shape[0] == 4,
               f"rank {rank}: mesh {exp.mesh.shape}, {exp.carry.env.obs[0].shape[0]} envs")
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         r = exp.run()
         torch.cuda.synchronize()
-        res["dp"] = {"launches": dict(ops.LAUNCHES), "loss_train": r["loss_train"], "loss_test": r["loss_test"],
+        res["dp"] = {"launches": launch_counts(), "loss_train": r["loss_train"], "loss_test": r["loss_test"],
                      "steps": [float(x) for x in steps], "epoch_wall_ms": [1e3 * s for s in r["epoch_wall_s"]],
                      "params_sha256": _digest(exp.carry.train_state.model.parameters()),
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1494,10 +1509,10 @@ def _scaleout_rank(rank: int, port: int, out_dir: str, examples: str) -> None:
         torch.cuda.empty_cache()
         exp = Experiment(_dp_config(examples, f"{out_dir}/tpe{rank}", 1, mesh__model_axis=2)).setup()
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         r = exp.run()
         torch.cuda.synchronize()
-        res["tp"] = {"launches": dict(ops.LAUNCHES), "loss_train": r["loss_train"], "loss_test": r["loss_test"],
+        res["tp"] = {"launches": launch_counts(), "loss_train": r["loss_train"], "loss_test": r["loss_test"],
                      "epoch_wall_ms": [1e3 * s for s in r["epoch_wall_s"]],
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         staged |= exp.mesh.staged
@@ -1528,9 +1543,9 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
     import torch
     import torch.distributed as dist
 
-    from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.parallel.mesh import init_distributed
     from mfvae_tpu_torch.training.experiment import Experiment
+    from mfvae_tpu_torch.utils import profiling
 
     def free_port() -> int:
         with socket.socket() as s:
@@ -1560,12 +1575,12 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
         undo()
         check((exp.mesh is not None) == enable, f"mesh.enable={enable}: mesh {exp.mesh}")
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         r = exp.run()
         torch.cuda.synchronize()
         name = "world 1 (NCCL)" if enable else "unsharded"
         runs[name] = {
-            "launches": dict(ops.LAUNCHES), "losses": epoch_losses(exp), "steps": [float(x) for x in steps],
+            "launches": launch_counts(), "losses": epoch_losses(exp), "steps": [float(x) for x in steps],
             "epoch_wall_ms": [round(1e3 * s, 3) for s in r["epoch_wall_s"]],
             "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
         }
@@ -1579,7 +1594,7 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     w1, plain = runs["world 1 (NCCL)"], runs["unsharded"]
-    want2 = {"reparam_kl_fwd": 20, "reparam_kl_bwd": 20, "huber_mean": 40}
+    want2 = {"k1.launches": 20, "k2.launches": 20, "k3.launches": 40}
     check(w1["launches"] == want2 and plain["launches"] == want2,
           f"data_parallel.yaml launches {w1['launches']}, {plain['launches']}, expected {want2}")
     check(w1["losses"] == plain["losses"] and w1["steps"] == plain["steps"],
@@ -1617,7 +1632,7 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
     ranks = [json.load(open(f"{rank_dir}/rank{r}.json")) for r in range(2)]
     out["ranks_wall_s"] = time.perf_counter() - t_ranks
 
-    want1 = {"reparam_kl_fwd": 10, "reparam_kl_bwd": 10, "huber_mean": 20}
+    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20}
     gaps = {}
     for r, res in enumerate(ranks):
         dp, tpe = res["dp"], res["tp"]
@@ -1699,6 +1714,7 @@ def reference_dicts_phase(dev) -> dict:
     from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.training.experiment import Experiment
     from mfvae_tpu_torch.training.trainer import apply_update, create_train_state, make_action_sampler
+    from mfvae_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     cfg = ExperimentConfig()
@@ -1711,7 +1727,7 @@ def reference_dicts_phase(dev) -> dict:
           == ("MPE_simple_tag_v3", 30, 10, 20, 128, "bfloat16", 40, 5660),
           "phase 25 runs the default config: simple_tag 30/10/20, batch 128, bf16, 40 agents, Σobs 5,660")
     out = {}
-    ops.reset_launch_counts()
+    profiling.reset_counters()
 
     # the reference's buffer, filled from the card's env with random actions
     g = torch.Generator(device=dev).manual_seed(25)
@@ -1824,9 +1840,9 @@ def reference_dicts_phase(dev) -> dict:
     check(moved > BF16_RTOL, "permuted ids gave the positional result: the ids read from the data were not used")
 
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    want = {"reparam_kl_fwd": REFERENCE_STEPS + 2, "reparam_kl_bwd": REFERENCE_STEPS,
-            "huber_mean": 2 * REFERENCE_STEPS + 4}
+    launches = launch_counts()
+    want = {"k1.launches": REFERENCE_STEPS + 2, "k2.launches": REFERENCE_STEPS,
+            "k3.launches": 2 * REFERENCE_STEPS + 4}
     print(f"[25] launches {launches} (the kernel route's {REFERENCE_STEPS} steps and 2 forwards)", flush=True)
     check(launches == want, f"phase 25: launch counts {launches}, expected {want}")
     out["launches"] = {"reference dicts: Adam steps + permuted ids": launches}
@@ -1859,12 +1875,13 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
     from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig
     from mfvae_tpu_torch.ops import fused_elbo as ops
     from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+    from mfvae_tpu_torch.utils import profiling
 
     root = Path(__file__).resolve().parent
     t_phase = time.perf_counter()
     out = {"walls_s": {}}
     print(f"[26] card: {smi}", flush=True)
-    ops.reset_launch_counts()
+    profiling.reset_counters()
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -1950,9 +1967,9 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
     check(gap <= 1e-4, f"det128 b4096: the routes differ by {gap:.3e} (rtol 1e-4)")
 
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = launch_counts()
     n = kernel_steps + 1
-    want = {"reparam_kl_fwd": n, "reparam_kl_bwd": n, "huber_mean": 2 * n}
+    want = {"k1.launches": n, "k2.launches": n, "k3.launches": 2 * n}
     print(f"[26] launches {launches}: the kernel-route rows' {kernel_steps} steps and the b4096 step", flush=True)
     check(launches == want, f"phase 26: launch counts {launches}, expected {want}")
     out["launches"] = {"bench: entry points + det128 b4096 routes": launches}
@@ -2046,6 +2063,7 @@ def main() -> None:
         from mfvae_tpu_torch.training import popart
         from mfvae_tpu_torch.training.trainer import make_action_sampler, make_train_step
         from mfvae_tpu_torch.utils import kernel_build
+        from mfvae_tpu_torch.utils import profiling
     except ImportError as e:
         fail(f"the mfvae_tpu_torch package is not importable beside this script ({e})")
     import torch.nn.functional as F
@@ -2243,10 +2261,10 @@ def main() -> None:
         cfg.train.log_dir = f"{tmp}/results"
         cfg.train.checkpoint_dir = f"{tmp}/ckpt"
         exp = Experiment(cfg).setup()
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         exp.result = result = exp.run()
         torch.cuda.synchronize()
-        launches = dict(ops.LAUNCHES)
+        launches = launch_counts()
         wall = [round(1e3 * s, 3) for s in result["epoch_wall_s"]]
         print(f"[{phase}] {label}, use_pallas={str(use_pallas).lower()}, {epochs} epoch(s): "
               f"loss_train {result['loss_train']:.6f} loss_test {result['loss_test']:.6f} "
@@ -2255,8 +2273,8 @@ def main() -> None:
               f"{label}: non-finite losses")
         if use_pallas:
             tn = cfg.train.train_num
-            want = {"reparam_kl_fwd": epochs * tn, "reparam_kl_bwd": epochs * tn,
-                    "huber_mean": 2 * epochs * tn}
+            want = {"k1.launches": epochs * tn, "k2.launches": epochs * tn,
+                    "k3.launches": 2 * epochs * tn}
             check(launches == want, f"{label}: launch counts {launches}, expected {want}")
         else:
             check(not any(launches.values()), f"{label}: the plain route launched kernels: {launches}")
@@ -2681,9 +2699,9 @@ def main() -> None:
     # ------------------------------------------------------ 27. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
     table = [
-        ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "reparam_kl_fwd"),
-        ("K2 fused_reparam_kl bwd", "K2", "mfvae_tpu/ops/fused_elbo.py:60", "reparam_kl_bwd"),
-        ("K3 huber_mean", "K3", "mfvae_tpu/ops/fused_elbo.py:164", "huber_mean"),
+        ("K1 fused_reparam_kl fwd", "K1", "mfvae_tpu/ops/fused_elbo.py:49", "k1.launches"),
+        ("K2 fused_reparam_kl bwd", "K2", "mfvae_tpu/ops/fused_elbo.py:60", "k2.launches"),
+        ("K3 huber_mean", "K3", "mfvae_tpu/ops/fused_elbo.py:164", "k3.launches"),
     ]
     line = []
     for name, key, replaces, counter in table:

@@ -33,6 +33,7 @@ from torch import nn
 
 from mfvae_tpu_torch.config import ModelConfig
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch, state_to_grouped, zero_actions_grouped
+from mfvae_tpu_torch.utils.profiling import span
 
 
 class _MeanCall(nn.Module):
@@ -92,33 +93,37 @@ class WorldModel:
         a dict {agent: [T] or [T, B] (continuous: [T, act] or [T, B, act])}
         or a per-group tuple of [T, B, A_g(, act)].  Returns the
         posterior-mean closed loop (states [T, B, Σobs], rewards
-        [T, B, A])."""
-        batch = self._as_batch(obs, None)
-        if isinstance(action_plan, dict):
-            discrete = self.model.discrete_act
-            plan_g = []
-            for _, idxs in self.spec.groups:
-                cols = []
-                for i in idxs:
-                    c = torch.as_tensor(action_plan[self.spec.agents[i]], device=self.device)
-                    # an unbatched per-agent plan gets a B = 1 axis
-                    if c.dim() == (1 if discrete else 2):
-                        c = c.unsqueeze(1)
-                    cols.append(c)
-                plan_g.append(torch.stack(cols, dim=2))  # [T, B, A_g(, act)]
-            action_plan = tuple(plan_g)
-        return self._rollout(batch.obs, action_plan)
+        [T, B, A]).  One span ``rollout`` a request."""
+        with span("rollout"):
+            batch = self._as_batch(obs, None)
+            if isinstance(action_plan, dict):
+                discrete = self.model.discrete_act
+                plan_g = []
+                for _, idxs in self.spec.groups:
+                    cols = []
+                    for i in idxs:
+                        c = torch.as_tensor(action_plan[self.spec.agents[i]], device=self.device)
+                        # an unbatched per-agent plan gets a B = 1 axis
+                        if c.dim() == (1 if discrete else 2):
+                            c = c.unsqueeze(1)
+                        cols.append(c)
+                    plan_g.append(torch.stack(cols, dim=2))  # [T, B, A_g(, act)]
+                action_plan = tuple(plan_g)
+            return self._rollout(batch.obs, action_plan)
 
     @torch.no_grad()
     def _rollout(self, obs_g, action_plan):
         """obs_g: per-group [B, A_g, od]; action_plan: per-group
-        [T, B, A_g(, act)]."""
+        [T, B, A_g(, act)].  Spans ``rollout.step`` (the step's
+        ``mean_call``) and ``rollout.refeed`` (its state re-split)."""
         states, rewards = [], []
         for t in range(action_plan[0].shape[0]):
-            ns, rw = self.model.mean_call(GroupedBatch(obs=obs_g, actions=tuple(a[t] for a in action_plan)))
+            with span("rollout.step"):
+                ns, rw = self.model.mean_call(GroupedBatch(obs=obs_g, actions=tuple(a[t] for a in action_plan)))
             states.append(ns)
             rewards.append(rw)
-            obs_g = state_to_grouped(self.spec, ns)
+            with span("rollout.refeed"):
+                obs_g = state_to_grouped(self.spec, ns)
         return torch.stack(states), torch.stack(rewards)
 
     def _as_batch(self, obs, actions) -> GroupedBatch:

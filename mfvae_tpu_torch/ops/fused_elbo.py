@@ -38,7 +38,10 @@ both to f32 where their types differ, and returns each gradient in its
 input's type, as ``_huber_bwd`` does.
 
 Routing: a tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises.  Each launch adds one to ``LAUNCHES``.
+launches the kernel or raises.  Each launch adds one to the counter
+``k1.launches``, ``k2.launches`` or ``k3.launches`` (``utils/profiling.py``
+``count``); under a profiler each launch is the span ``k1``, ``k2`` or
+``k3``.
 
 Under ``train.debug_nans`` (``utils/debug_nans.py``) the wrappers hand
 each kernel's outputs, or its plain version's, to the check set by
@@ -53,10 +56,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from mfvae_tpu_torch.utils import kernel_build
+from mfvae_tpu_torch.utils import kernel_build, profiling
 
 SOURCE = "fused_elbo.cu"
-LAUNCHES = {"reparam_kl_fwd": 0, "reparam_kl_bwd": 0, "huber_mean": 0}
 _HUBER_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # as in fused_elbo.cu
 FLOAT_TYPES = tuple(_HUBER_DTYPE_CODE)  # what the wrappers take, as the JAX functions do
 _HUBER_THREADS = 256
@@ -68,11 +70,6 @@ HUBER_SINGLE_BLOCK_MAX = 8192
 _LIB = None
 _HUBER_WORKSPACES: dict = {}  # (device index, stream handle) -> int32 tensor
 _NAN_CHECK = None  # (where, *outputs) -> None, raising on a NaN; None: off
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def set_nan_check(check) -> None:
@@ -206,14 +203,15 @@ def _reparam_kl_fwd_cuda(mu, lv, eps):
     z = torch.empty_like(mu)
     kl = torch.empty(rows, device=mu.device, dtype=torch.float32)
     if rows:
-        with torch.cuda.device(mu.device):
+        lib = _lib()
+        with torch.cuda.device(mu.device), profiling.span("k1"):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _lib().mfvae_reparam_kl_fwd(
+            err = lib.mfvae_reparam_kl_fwd(
                 mu.data_ptr(), lv.data_ptr(), eps.data_ptr(), z.data_ptr(),
                 kl.data_ptr(), rows, f, _vec(f, mu, lv, eps, z), stream,
             )
         _raise_on(err, "reparam_kl_fwd")
-        LAUNCHES["reparam_kl_fwd"] += 1
+        profiling.count("k1.launches")
     return z, kl
 
 
@@ -223,15 +221,16 @@ def _reparam_kl_bwd_cuda(mu, lv, eps, gz, gkl):
     dmu = torch.empty_like(mu)
     dlv = torch.empty_like(mu)
     if rows:
-        with torch.cuda.device(mu.device):
+        lib = _lib()
+        with torch.cuda.device(mu.device), profiling.span("k2"):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _lib().mfvae_reparam_kl_bwd(
+            err = lib.mfvae_reparam_kl_bwd(
                 mu.data_ptr(), lv.data_ptr(), eps.data_ptr(), gz.data_ptr(),
                 gkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), rows, f,
                 _vec(f, mu, lv, eps, gz, dmu, dlv), stream,
             )
         _raise_on(err, "reparam_kl_bwd")
-        LAUNCHES["reparam_kl_bwd"] += 1
+        profiling.count("k2.launches")
     return dmu, dlv
 
 
@@ -254,18 +253,20 @@ def _huber_mean_cuda(x, y, delta: float, single_block_max: int = HUBER_SINGLE_BL
         raise TypeError(f"huber_mean: K3 reads one type, got {x.dtype} and {y.dtype}")
     n = x.numel()
     out = torch.empty((), device=x.device, dtype=torch.float32)
+    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         ws = _huber_workspace(stream)
         geo = huber_geometry(
             x.data_ptr(), y.data_ptr(), n, x.element_size(), ws.numel() - 1, single_block_max
         )
-        err = _lib().mfvae_huber_mean_onepass(
-            x.data_ptr(), y.data_ptr(), _HUBER_DTYPE_CODE[x.dtype], float(delta), n,
-            geo.vec, geo.head, geo.blocks, ws.data_ptr(), out.data_ptr(), stream,
-        )
+        with profiling.span("k3"):
+            err = lib.mfvae_huber_mean_onepass(
+                x.data_ptr(), y.data_ptr(), _HUBER_DTYPE_CODE[x.dtype], float(delta), n,
+                geo.vec, geo.head, geo.blocks, ws.data_ptr(), out.data_ptr(), stream,
+            )
     _raise_on(err, "huber_mean")
-    LAUNCHES["huber_mean"] += 1
+    profiling.count("k3.launches")
     return out
 
 

@@ -51,6 +51,7 @@ from mfvae_tpu_torch.training.popart import (
     normalize,
     pop_rescale_head,
 )
+from mfvae_tpu_torch.utils.profiling import span
 
 
 # rows of one eval forward at most (whole eval batches; at least one): the
@@ -155,17 +156,20 @@ def _clip_by_global_norm(params, max_norm: float, mesh=None, split_dims=None) ->
 def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
     """One optimizer update from ``loss``: backward, the gradients averaged
     over the mesh's 'data' axis, the global-norm clip when ``grad_clip`` >
-    0, Adam at the schedule's lr; counts the step."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if mesh is not None:
-        average_gradients(state.model.parameters(), mesh)
-    if state.grad_clip > 0:
-        dims = None if mesh is None else tp.split_dims(state.model)
-        _clip_by_global_norm(state.model.parameters(), state.grad_clip, mesh, dims)
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.lr_fn(state.step)
-    state.optimizer.step()
+    0, Adam at the schedule's lr; counts the step.  Spans ``train.backward``
+    (to the averaged gradients) and ``train.update`` (the rest)."""
+    with span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if mesh is not None:
+            average_gradients(state.model.parameters(), mesh)
+    with span("train.update"):
+        if state.grad_clip > 0:
+            dims = None if mesh is None else tp.split_dims(state.model)
+            _clip_by_global_norm(state.model.parameters(), state.grad_clip, mesh, dims)
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr_fn(state.step)
+        state.optimizer.step()
     state.step += 1
 
 
@@ -222,25 +226,29 @@ def make_train_step(
     def train_step(state: TrainState, batch: VaeBatch, generator=None, eps=None, eps_shared=None):
         model = state.model
         reward_targets = batch.rewards
-        if use_art:
-            pa_new = art(state.popart, batch.rewards, popart_beta, dp)
-            if use_pop:
-                pop_rescale_head(model, state.popart, pa_new)
-            state.popart = pa_new
-            reward_targets = normalize(pa_new, batch.rewards)
+        with span("train.forward"):
+            if use_art:
+                pa_new = art(state.popart, batch.rewards, popart_beta, dp)
+                if use_pop:
+                    pop_rescale_head(model, state.popart, pa_new)
+                state.popart = pa_new
+                reward_targets = normalize(pa_new, batch.rewards)
+            if use_pallas:
+                recon_s, recon_r, kl_rows = model.fused_call(batch.inputs, None, generator, eps, eps_shared)
+            else:
+                recon_s, recon_r, mu, logvar = model(batch.inputs, None, generator, eps, eps_shared)
         kl_scale = _kl_scale(loss_cfg, state.step)
-        if use_pallas:
-            recon_s, recon_r, kl_rows = model.fused_call(batch.inputs, None, generator, eps, eps_shared)
-            s_loss = huber_mean(batch.next_state, recon_s, loss_cfg.huber_delta)
-            r_loss = huber_mean(reward_targets, recon_r, loss_cfg.huber_delta)
-            kl_loss = torch.mean(torch.sum(kl_rows, dim=1))
-            out = combine_losses(s_loss, r_loss, kl_loss, loss_cfg, kl_scale)
-        else:
-            recon_s, recon_r, mu, logvar = model(batch.inputs, None, generator, eps, eps_shared)
-            out = elbo_losses(
-                recon_s, recon_r, batch.next_state, reward_targets, mu, logvar,
-                loss_cfg, kl_scale=kl_scale, s_col_weight=s_col_weight, mesh=dp,
-            )
+        with span("train.loss"):
+            if use_pallas:
+                s_loss = huber_mean(batch.next_state, recon_s, loss_cfg.huber_delta)
+                r_loss = huber_mean(reward_targets, recon_r, loss_cfg.huber_delta)
+                kl_loss = torch.mean(torch.sum(kl_rows, dim=1))
+                out = combine_losses(s_loss, r_loss, kl_loss, loss_cfg, kl_scale)
+            else:
+                out = elbo_losses(
+                    recon_s, recon_r, batch.next_state, reward_targets, mu, logvar,
+                    loss_cfg, kl_scale=kl_scale, s_col_weight=s_col_weight, mesh=dp,
+                )
         apply_update(state, out.loss, mesh)
         out = LossOutputs(*(x.detach() for x in out))
         return state, out if dp is None else mean_over_data(out, dp)
@@ -514,39 +522,40 @@ def make_phase_fns(
         return pol_c, policy(env_c.state, streams["act"], noise=noise)
 
     def collect(env_c: EnvCarry, buf_state: BufferState, which_buffer: ItemBuffer):
-        # the policy carry resumes from the previous phase or epoch, so an
-        # episode spanning a phase boundary keeps its policy state
-        pol_c = env_c.policy if env_c.policy or not stateful else policy.init_carry(lead)
-        for _ in range(cfg.train.sample_num):
-            pol_c, actions = act(env_c, pol_c)
-            next_obs, next_state, rewards, done, _ = env.step_stacked(env_c.state, actions)
-            tr = GroupedTransition(
-                obs=stacked_to_grouped(spec, env_c.obs),
-                actions=group_actions(actions),
-                next_obs=stacked_to_grouped(spec, next_obs),
-                rewards=rewards,
-                done=torch.amax(done.to(torch.float32), dim=-1),
-            )
-            buf_state = which_buffer.add(buf_state, tr)
-            if E > 1:
-                # every env's reset is drawn and chosen on the device
-                done_all = torch.all(done, dim=-1)
+        with span("collect"):
+            # the policy carry resumes from the previous phase or epoch, so an
+            # episode spanning a phase boundary keeps its policy state
+            pol_c = env_c.policy if env_c.policy or not stateful else policy.init_carry(lead)
+            for _ in range(cfg.train.sample_num):
+                pol_c, actions = act(env_c, pol_c)
+                next_obs, next_state, rewards, done, _ = env.step_stacked(env_c.state, actions)
+                tr = GroupedTransition(
+                    obs=stacked_to_grouped(spec, env_c.obs),
+                    actions=group_actions(actions),
+                    next_obs=stacked_to_grouped(spec, next_obs),
+                    rewards=rewards,
+                    done=torch.amax(done.to(torch.float32), dim=-1),
+                )
+                buf_state = which_buffer.add(buf_state, tr)
+                if E > 1:
+                    # every env's reset is drawn and chosen on the device
+                    done_all = torch.all(done, dim=-1)
 
-                def pick(a, b):
-                    return torch.where(done_all.reshape(lead + (1,) * (a.dim() - 1)), a, b)
+                    def pick(a, b):
+                        return torch.where(done_all.reshape(lead + (1,) * (a.dim() - 1)), a, b)
 
-                reset_obs, reset_state = rows(env.reset_stacked(streams["reset"], batch_shape=global_lead))
-                env_c = EnvCarry(tree_map(pick, reset_obs, next_obs), tree_map(pick, reset_state, next_state))
-                if stateful:
-                    pol_c = reset_carry(policy, pol_c, done_all)
-            elif bool(torch.all(done)):
-                # auto-reset at episode end; reading the flag waits for the step
-                env_c = EnvCarry(*env.reset_stacked(streams["reset"]))
-                if stateful:
-                    pol_c = policy.init_carry()
-            else:
-                env_c = EnvCarry(obs=next_obs, state=next_state)
-        return env_c._replace(policy=pol_c), buf_state
+                    reset_obs, reset_state = rows(env.reset_stacked(streams["reset"], batch_shape=global_lead))
+                    env_c = EnvCarry(tree_map(pick, reset_obs, next_obs), tree_map(pick, reset_state, next_state))
+                    if stateful:
+                        pol_c = reset_carry(policy, pol_c, done_all)
+                elif bool(torch.all(done)):
+                    # auto-reset at episode end; reading the flag waits for the step
+                    env_c = EnvCarry(*env.reset_stacked(streams["reset"]))
+                    if stateful:
+                        pol_c = policy.init_carry()
+                else:
+                    env_c = EnvCarry(obs=next_obs, state=next_state)
+            return env_c._replace(policy=pol_c), buf_state
 
     def window_eps(model: MAVAE):
         """``draw_eps`` of each of an unroll window's W steps, stacked."""
@@ -555,19 +564,24 @@ def make_phase_fns(
         return torch.stack([e for e, _ in steps]), None if eps_s[0] is None else torch.stack(eps_s)
 
     def train_phase(train_state: TrainState, buf_state: BufferState):
-        outs = []
-        for _ in range(cfg.train.train_num):
-            if W > 1:
-                wb = buffer.sample_window(buf_state, streams["sample"], W, block=cfg.train.sample_num)
-                train_state, o = unroll_step(train_state, wb.experience, streams["train"],
-                                             *window_eps(train_state.model))
-            else:
-                batch = buffer.sample(buf_state, streams["sample"])
-                vb = vae_batch_from_grouped(spec, batch.experience)
-                eps, eps_s = draw_eps(train_state.model, streams["train"], cfg.buffer.batch_size)
-                train_state, o = train_step(train_state, vb, streams["train"], eps, eps_s)
-            outs.append(o)
-        return train_state, LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
+        with span("train_phase"):
+            outs = []
+            for _ in range(cfg.train.train_num):
+                if W > 1:
+                    with span("train.sample"):
+                        wb = buffer.sample_window(buf_state, streams["sample"], W, block=cfg.train.sample_num)
+                    with span("train.eps"):
+                        eps, eps_s = window_eps(train_state.model)
+                    train_state, o = unroll_step(train_state, wb.experience, streams["train"], eps, eps_s)
+                else:
+                    with span("train.sample"):
+                        batch = buffer.sample(buf_state, streams["sample"])
+                        vb = vae_batch_from_grouped(spec, batch.experience)
+                    with span("train.eps"):
+                        eps, eps_s = draw_eps(train_state.model, streams["train"], cfg.buffer.batch_size)
+                    train_state, o = train_step(train_state, vb, streams["train"], eps, eps_s)
+                outs.append(o)
+            return train_state, LossOutputs(*(torch.stack(xs).mean() for xs in zip(*outs)))
 
     # the reference divides the test phase's sums by train_num
     # (jax_ver/main.py:228-231); the JAX package keeps that under
@@ -581,26 +595,27 @@ def make_phase_fns(
         # chunks of whole batches past EVAL_CHUNK_ROWS rows (see the module
         # docstring); the draws are those of one forward: every sample, then
         # every eps
-        n = n_eval * test_buffer.sample_batch_size
-        sampled = test_buffer.sample(buf_state, streams["eval"], batch_size=n).experience
-        batch_rows = tree_leaves(sampled)[0].shape[0] // n_eval  # this rank's rows of one eval batch
-        chunk = max(1, EVAL_CHUNK_ROWS // batch_rows)
-        eps, eps_s = draw_eps(train_state.model, streams["eval"], n_eval * batch_rows * D, n_eval)
-        outs = []
-        for lo in range(0, n_eval, chunk):
-            k = min(chunk, n_eval - lo)
-            part = slice(lo * batch_rows, (lo + k) * batch_rows)
-            vb = vae_batch_from_grouped(spec, tree_map(lambda x: x[part], sampled))
-            o = test_step(train_state, vb, None, eps[part], None if eps_s is None else eps_s[part], n_batches=k)
-            outs.append((o, k))
-        if len(outs) == 1:
-            out = outs[0][0]
-        else:  # a mean over equal batches: the chunks' means weighted by their batch counts
-            out = LossOutputs(*(sum(o[i] * k for o, k in outs) / n_eval for i in range(len(LossOutputs._fields))))
-        if test_scale is not None:
-            # the sum of the test_num per-batch means over train_num
-            out = LossOutputs(*(x * test_scale for x in out))
-        return out
+        with span("test_phase"):
+            n = n_eval * test_buffer.sample_batch_size
+            sampled = test_buffer.sample(buf_state, streams["eval"], batch_size=n).experience
+            batch_rows = tree_leaves(sampled)[0].shape[0] // n_eval  # this rank's rows of one eval batch
+            chunk = max(1, EVAL_CHUNK_ROWS // batch_rows)
+            eps, eps_s = draw_eps(train_state.model, streams["eval"], n_eval * batch_rows * D, n_eval)
+            outs = []
+            for lo in range(0, n_eval, chunk):
+                k = min(chunk, n_eval - lo)
+                part = slice(lo * batch_rows, (lo + k) * batch_rows)
+                vb = vae_batch_from_grouped(spec, tree_map(lambda x: x[part], sampled))
+                o = test_step(train_state, vb, None, eps[part], None if eps_s is None else eps_s[part], n_batches=k)
+                outs.append((o, k))
+            if len(outs) == 1:
+                out = outs[0][0]
+            else:  # a mean over equal batches: the chunks' means weighted by their batch counts
+                out = LossOutputs(*(sum(o[i] * k for o, k in outs) / n_eval for i in range(len(LossOutputs._fields))))
+            if test_scale is not None:
+                # the sum of the test_num per-batch means over train_num
+                out = LossOutputs(*(x * test_scale for x in out))
+            return out
 
     return collect, train_phase, test_phase
 

@@ -35,6 +35,7 @@ from mfvae_tpu_torch.models.mavae import AgentSpec, GroupedBatch, agent_order_co
 from mfvae_tpu_torch.parallel.dp import mean_over_data
 from mfvae_tpu_torch.parallel.mesh import DATA_AXIS
 from mfvae_tpu_torch.training.trainer import _kl_scale, apply_update
+from mfvae_tpu_torch.utils.profiling import span
 
 
 def _huber_rows(x: torch.Tensor, y: torch.Tensor, delta: float) -> torch.Tensor:
@@ -87,57 +88,60 @@ def make_unroll_loss_fn(
         done = wbatch.done.to(torch.float32)  # [B, W]
         mask = torch.ones_like(done[:, 0])
         sums = []
-        for t in range(W):
-            batch = GroupedBatch(obs=obs, actions=tuple(a[:, t] for a in wbatch.actions))
-            tgt_s = agent_order_concat(spec, tuple(o[:, t] for o in wbatch.next_obs))
-            tgt_r = wbatch.rewards[:, t]
-            recon_s, recon_r, mu, logvar = model(
-                batch, None, generator,
-                None if eps is None else eps[t], None if eps_shared is None else eps_shared[t],
+        # the W forwards with their per-row loss terms and the feedback
+        with span("train.forward"):
+            for t in range(W):
+                batch = GroupedBatch(obs=obs, actions=tuple(a[:, t] for a in wbatch.actions))
+                tgt_s = agent_order_concat(spec, tuple(o[:, t] for o in wbatch.next_obs))
+                tgt_r = wbatch.rewards[:, t]
+                recon_s, recon_r, mu, logvar = model(
+                    batch, None, generator,
+                    None if eps is None else eps[t], None if eps_shared is None else eps_shared[t],
+                )
+                if s_col_weight is not None:
+                    # the column lever: a weighted column mean per sample
+                    elem = _elem_loss(recon_s, tgt_s, loss_cfg)
+                    s_rows = torch.sum(elem * s_col_weight, dim=-1) / torch.sum(s_col_weight)
+                elif loss_cfg.use_huber:
+                    s_rows = _huber_rows(recon_s, tgt_s, loss_cfg.huber_delta)
+                else:
+                    s_rows = _mse_rows(recon_s, tgt_s)
+                if recon_r.dim() == tgt_r.dim() + 1:
+                    # two-hot reward head: logits [B, A, K], cross-entropy per sample
+                    r_rows = torch.mean(twohot_ce_rows(recon_r, tgt_r), dim=-1)
+                elif loss_cfg.use_huber:
+                    r_rows = _huber_rows(recon_r, tgt_r, loss_cfg.huber_delta)
+                else:
+                    r_rows = _mse_rows(recon_r, tgt_r)
+                kl_rows = _kl_rows(mu, logvar, loss_cfg.free_bits)
+                if loss_cfg.contact_weight > 0.0:
+                    # contact transitions count (1 + contact_weight)x in the state branch
+                    contact = (torch.amax(tgt_r, dim=-1) > loss_cfg.contact_threshold).to(torch.float32)
+                    s_w = mask * (1.0 + loss_cfg.contact_weight * contact)
+                else:
+                    s_w = mask
+                sums.append(torch.stack([
+                    torch.sum(s_rows * s_w), torch.sum(r_rows * mask), torch.sum(kl_rows * mask),
+                    torch.sum(mask), torch.sum(s_w),
+                ]))
+                if t + 1 == W:
+                    break
+                # windows die at episode boundaries; the prediction feeds back
+                mask = mask * (1.0 - done[:, t])
+                fb = model.mean_call(batch)[0] if mean_feedback else recon_s
+                if stop_gradient:
+                    fb = fb.detach()
+                obs = state_to_grouped(spec, fb)
+        with span("train.loss"):  # the pooled means
+            s_sum, r_sum, kl_sum, w_sum, sw_sum = torch.stack(sums).sum(dim=0)
+            if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+                n = mesh.shape[DATA_AXIS]
+                w_sum, sw_sum = mesh.all_reduce(torch.stack([w_sum, sw_sum]).detach(), DATA_AXIS)
+                s_sum, r_sum, kl_sum = n * s_sum, n * r_sum, n * kl_sum
+            total_w = torch.clamp(w_sum, min=1.0)
+            return combine_losses(
+                s_sum / torch.clamp(sw_sum, min=1.0), r_sum / total_w, kl_sum / total_w, loss_cfg, kl_scale
             )
-            if s_col_weight is not None:
-                # the column lever: a weighted column mean per sample
-                elem = _elem_loss(recon_s, tgt_s, loss_cfg)
-                s_rows = torch.sum(elem * s_col_weight, dim=-1) / torch.sum(s_col_weight)
-            elif loss_cfg.use_huber:
-                s_rows = _huber_rows(recon_s, tgt_s, loss_cfg.huber_delta)
-            else:
-                s_rows = _mse_rows(recon_s, tgt_s)
-            if recon_r.dim() == tgt_r.dim() + 1:
-                # two-hot reward head: logits [B, A, K], cross-entropy per sample
-                r_rows = torch.mean(twohot_ce_rows(recon_r, tgt_r), dim=-1)
-            elif loss_cfg.use_huber:
-                r_rows = _huber_rows(recon_r, tgt_r, loss_cfg.huber_delta)
-            else:
-                r_rows = _mse_rows(recon_r, tgt_r)
-            kl_rows = _kl_rows(mu, logvar, loss_cfg.free_bits)
-            if loss_cfg.contact_weight > 0.0:
-                # contact transitions count (1 + contact_weight)x in the state branch
-                contact = (torch.amax(tgt_r, dim=-1) > loss_cfg.contact_threshold).to(torch.float32)
-                s_w = mask * (1.0 + loss_cfg.contact_weight * contact)
-            else:
-                s_w = mask
-            sums.append(torch.stack([
-                torch.sum(s_rows * s_w), torch.sum(r_rows * mask), torch.sum(kl_rows * mask),
-                torch.sum(mask), torch.sum(s_w),
-            ]))
-            if t + 1 == W:
-                break
-            # windows die at episode boundaries; the prediction feeds back
-            mask = mask * (1.0 - done[:, t])
-            fb = model.mean_call(batch)[0] if mean_feedback else recon_s
-            if stop_gradient:
-                fb = fb.detach()
-            obs = state_to_grouped(spec, fb)
-        s_sum, r_sum, kl_sum, w_sum, sw_sum = torch.stack(sums).sum(dim=0)
-        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
-            n = mesh.shape[DATA_AXIS]
-            w_sum, sw_sum = mesh.all_reduce(torch.stack([w_sum, sw_sum]).detach(), DATA_AXIS)
-            s_sum, r_sum, kl_sum = n * s_sum, n * r_sum, n * kl_sum
-        total_w = torch.clamp(w_sum, min=1.0)
-        return combine_losses(
-            s_sum / torch.clamp(sw_sum, min=1.0), r_sum / total_w, kl_sum / total_w, loss_cfg, kl_scale
-        )
 
     return loss_fn
 

@@ -1,4 +1,4 @@
-"""Tracing and profiling hooks (mirror of ``mfvae_tpu/utils/profiling.py``).
+"""The port's tracing: profiler traces, named spans and counters.
 
 - ``trace(log_dir)``: a context manager over ``torch.profiler.profile``
   (host and, where there is one, CUDA activity) that writes a
@@ -7,19 +7,32 @@
   before the trace stops, so the kernels queued inside it are in the
   trace.  Open it with ``tensorboard --logdir <log_dir>`` (the PyTorch
   Profiler plugin) or load the ``*.pt.trace.json`` file in Perfetto.
-- ``annotate(name)``: a named span in the trace
-  (``torch.profiler.record_function``).
-- ``StepTimer``: per-step wall timing with an EMA, for the metrics path.
+- ``span(name)``: a named span at a layer boundary.  While
+  ``torch.profiler`` records, it is the host event
+  ``mfvae.<name>`` (``record_function``), on the profiler's clock beside
+  the device operations, inside the span around it; with CUDA activity
+  the profiler also draws it on the device timeline (its
+  ``gpu_user_annotation`` range), which times the kernels launched in it.
+  With no profiler recording, a span is one shared ``nullcontext``: one
+  flag check, no event.
+- ``count(name, n=1)``: integer counters, always on; ``counters()`` is a
+  copy of them, ``reset_counters()`` clears them.  The kernels K1-K3
+  (``ops/fused_elbo.py``) count their launches as ``k1.launches``,
+  ``k2.launches`` and ``k3.launches``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+
+PREFIX = "mfvae."
+_OFF = contextlib.nullcontext()
+_COUNTERS: Dict[str, int] = {}
 
 
 @contextlib.contextmanager
@@ -35,33 +48,20 @@ def trace(log_dir: str) -> Iterator[profile]:
                 torch.cuda.synchronize()
 
 
-def annotate(name: str):
-    return record_function(name)
+def span(name: str):
+    """The span ``mfvae.<name>`` while a profiler records, else a no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return record_function(PREFIX + name)
 
 
-class StepTimer:
-    def __init__(self, ema: float = 0.9):
-        self._ema = ema
-        self._avg: Optional[float] = None
-        self._t0: Optional[float] = None
-        self.last: Optional[float] = None
+def count(name: str, n: int = 1) -> None:
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
 
-    def __exit__(self, *exc):
-        self.last = time.perf_counter() - self._t0
-        self._avg = (
-            self.last
-            if self._avg is None
-            else self._ema * self._avg + (1 - self._ema) * self.last
-        )
-        return False
+def counters() -> Dict[str, int]:
+    return dict(_COUNTERS)
 
-    @property
-    def avg(self) -> Optional[float]:
-        return self._avg
 
-    def rate(self, items: int) -> Optional[float]:
-        return items / self._avg if self._avg else None
+def reset_counters() -> None:
+    _COUNTERS.clear()

@@ -34,9 +34,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from mfvae_tpu_torch.config import ExperimentConfig, apply_overrides, load_config  # noqa: E402
-from mfvae_tpu_torch.ops import fused_elbo as ops  # noqa: E402
 from mfvae_tpu_torch.training.experiment import Experiment  # noqa: E402
 from mfvae_tpu_torch.training.trainer import EpochCarry, make_phase_fns  # noqa: E402
+from mfvae_tpu_torch.utils import profiling  # noqa: E402
 
 
 def timed(fn, *args):
@@ -101,7 +101,7 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "", overrid
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         env_c, buf = collect(carry.env, carry.buffer_state, exp.buffer)
@@ -134,7 +134,7 @@ def breakdown(use_pallas: bool, epochs: int, tmp: str, config: str = "", overrid
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels_ms_count": kernels[:12],
-        "launches_in_profiled_epoch": dict(ops.LAUNCHES),
+        "launches_in_profiled_epoch": profiling.counters(),
     }
 
 

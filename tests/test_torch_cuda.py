@@ -22,6 +22,7 @@ from mfvae_tpu_torch.data.transitions import VaeBatch
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch
 from mfvae_tpu_torch.ops import fused_elbo as ops
 from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
+from mfvae_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -42,7 +43,7 @@ def _randn(dev, *shape, seed=0):
 @pytest.mark.parametrize("shape", [(128, 40, 64), (3, 7, 64), (5, 3, 33)], ids=str)
 def test_reparam_kl_fwd_and_bwd(dev, shape):
     mu, lv, eps = (_randn(dev, *shape, seed=s) for s in range(3))
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     z, kl = ops.fused_reparam_kl(mu, lv, eps)
     zp, klp = ops._fused_reparam_kl_plain(mu, lv, eps)
     torch.testing.assert_close(z, zp, rtol=1e-6, atol=1e-6)
@@ -52,7 +53,7 @@ def test_reparam_kl_fwd_and_bwd(dev, shape):
     rows = (mu.reshape(-1, f), lv.reshape(-1, f), eps.reshape(-1, f), gz.reshape(-1, f), gkl.reshape(-1))
     for got, want in zip(ops._reparam_kl_bwd_cuda(*rows), ops._bwd_rows_plain(*rows)):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    assert ops.LAUNCHES["reparam_kl_fwd"] == 1 and ops.LAUNCHES["reparam_kl_bwd"] == 1
+    assert profiling.counters() == {"k1.launches": 1, "k2.launches": 1}
 
 
 T = ops.HUBER_SINGLE_BLOCK_MAX
@@ -158,17 +159,48 @@ def test_train_step_routes_agree_on_the_card(dev):
         model = MAVAE.from_config(cfg, spec, device=dev)
         model.load_state_dict(init)
         state = create_train_state(model, TrainConfig())
-        ops.reset_launch_counts()
+        profiling.reset_counters()
         state, out = make_train_step(LossConfig(), use_pallas=use_pallas)(
             state, batch, torch.Generator(device=dev).manual_seed(2)
         )
-        results.append((out, state.model.state_dict(), dict(ops.LAUNCHES)))
+        results.append((out, state.model.state_dict(), profiling.counters()))
     (o1, p1, l1), (o2, p2, l2) = results
-    assert not any(l1.values()) and l2 == {"reparam_kl_fwd": 1, "reparam_kl_bwd": 1, "huber_mean": 2}
+    assert l1 == {} and l2 == {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2}
     for a, b in zip(o1, o2):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     for name in p1:
         torch.testing.assert_close(p1[name], p2[name], rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_spans_cover_their_kernels_under_a_profiler(dev):
+    """K1-K3's spans: one host event a launch under the profiler (K2's on
+    autograd's thread), whose device-side range holds its one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mu, lv, eps = (_randn(dev, 64, 40, 64, seed=s).requires_grad_(s < 2) for s in range(3))
+    x, y = _randn(dev, 64, 5660, seed=3), _randn(dev, 64, 5660, seed=4)
+    xr, yr = _randn(dev, 64, 40, seed=5), _randn(dev, 64, 40, seed=6)
+
+    def step():
+        z, kl = ops.fused_reparam_kl(mu, lv, eps)
+        (z.sum() + kl.sum() + ops.huber_mean(x, y) + ops.huber_mean(xr, yr)).backward()
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    host = [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    assert {k: host.count(f"mfvae.{k}") for k in ("k1", "k2", "k3")} == {"k1": 3, "k2": 3, "k3": 6}
+    kernels = {"k1": "reparam_kl_fwd_kernel", "k2": "reparam_kl_bwd_kernel", "k3": "huber_mean_kernel"}
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    for k, kname in kernels.items():
+        ranges = [e.time_range for e in on_device if e.name == f"mfvae.{k}"]
+        mine = [e.time_range for e in on_device if kname in e.name]
+        assert len(ranges) == len(mine) == host.count(f"mfvae.{k}"), k
+        for r in ranges:
+            assert sum(r.start <= m.start and m.end <= r.end for m in mine) == 1, k
 
 
 def test_host_backend_launches_no_kernel_on_the_card(dev, tmp_path):
@@ -188,7 +220,7 @@ def test_host_backend_launches_no_kernel_on_the_card(dev, tmp_path):
     cfg.train.log_dir = str(tmp_path)
     exp = HostExperiment(cfg).setup()
     assert next(exp.train_state.model.parameters()).device.type == "cuda"
-    ops.reset_launch_counts()
+    profiling.reset_counters()
     result = exp.run()
-    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    assert profiling.counters() == {}
     assert math.isfinite(result["loss_train"])

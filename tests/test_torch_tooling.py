@@ -12,7 +12,6 @@ generator.  Float32 on the CPU, where torch has no TF32.
 """
 
 import json
-import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -39,7 +38,7 @@ from mfvae_tpu_torch.ops import fused_elbo
 from mfvae_tpu_torch.training.experiment import Experiment
 from mfvae_tpu_torch.training.trainer import create_train_state, make_phase_fns
 from mfvae_tpu_torch.utils.debug_nans import NanGuard
-from mfvae_tpu_torch.utils.profiling import StepTimer, annotate, trace
+from mfvae_tpu_torch.utils.profiling import span, trace
 from tests.test_torch_experiment import (  # noqa: F401
     JAX_TEST_HI,
     JAX_TEST_LO,
@@ -70,20 +69,11 @@ def small(tmp, epochs=2, **options):
 
 
 # ------------------------------------------------------------------ profiling
-def test_step_timer():
-    t = StepTimer(ema=0.5)
-    for _ in range(3):
-        with t:
-            time.sleep(0.01)
-    assert t.avg is not None and t.avg > 0.005
-    assert t.rate(10) > 0
-
-
 def test_annotate_names_a_span_in_the_trace(tmp_path):
     with trace(str(tmp_path)) as prof:
-        with annotate("span"):
+        with span("phase"):
             torch.ones(4).sum()
-    assert any(e.name == "span" for e in prof.events())
+    assert any(e.name == "mfvae.phase" for e in prof.events())
     assert list(tmp_path.glob("*.pt.trace.json"))
 
 
@@ -96,6 +86,7 @@ def test_profile_epochs_writes_a_trace(tmp_path):
     # epoch 1 alone: its train steps' Adam updates, one per step
     steps = [e for e in events if e.get("name", "").startswith("Optimizer.step#Adam.step")]
     assert len(steps) == exp.cfg.train.train_num
+    assert [e.get("name") for e in events].count("mfvae.train_phase") == 1
 
 
 @pytest.mark.parametrize("profile,per_dispatch,start,epochs,want", [
