@@ -22,10 +22,28 @@ its inputs (continuous actions, the imagined obs fed back) and never the
 world model.  Every query reads the one model it was given, with no copy,
 so ``predict`` and ``_predict`` agree however far that model trains on
 (the JAX ``WorldModel`` holds a snapshot of ``variables`` instead).
+
+On the card ``rollout`` serves each step as one replayed CUDA graph: the
+step's ``mean_call`` on static per-group obs and action buffers, then the
+refeed, which copies the predicted state, re-split, back into the obs
+buffers, so a replay leaves the next step's input in place.  One capture
+serves every horizon.  A graph is keyed on the device, the per-group obs
+and action shapes and dtypes (B among them; the action shapes tell
+discrete from continuous) and the address of every parameter and buffer
+of the model.  An update in place (``optimizer.step``,
+``load_state_dict``) keeps the addresses, so a replay reads the trained
+weights; a replaced or moved tensor changes the key and forces a new
+capture.  The first request of a key runs eagerly, which warms up the
+capture; the second captures and replays.  ``GRAPH_KEYS`` graphs are kept,
+and the one used least recently goes first.  The CPU, and a start that is
+not float32 (the refeed is), run the eager loop.  Counters
+(``utils/profiling.py``): ``rollout.graph_captures``,
+``rollout.graph_replays`` (one a step) and ``rollout.eager_steps``.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -33,7 +51,9 @@ from torch import nn
 
 from mfvae_tpu_torch.config import ModelConfig
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch, state_to_grouped, zero_actions_grouped
-from mfvae_tpu_torch.utils.profiling import span
+from mfvae_tpu_torch.utils.profiling import count, span
+
+GRAPH_KEYS = 4
 
 
 class _MeanCall(nn.Module):
@@ -47,12 +67,40 @@ class _MeanCall(nn.Module):
         return self.model.mean_call(batch)
 
 
+class _StepGraph:
+    """One rollout step captured as a CUDA graph (``graph``): ``step`` on
+    the static buffers ``obs`` and ``act``.  A replay overwrites ``ns``
+    [B, Σobs] and ``rw`` [B, A], the step's outputs, and ``obs``."""
+
+    def __init__(self, model: MAVAE, obs_g, actions, device: torch.device):
+        self.model = model
+        self.obs = tuple(torch.empty(o.shape, dtype=o.dtype, device=device) for o in obs_g)
+        self.act = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in actions)
+        self._capture()
+
+    def _capture(self) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.step()
+
+    def step(self) -> None:
+        """``mean_call`` on the buffers, then the refeed: the predicted
+        state re-split into ``obs``, the next step's input."""
+        self.ns, self.rw = self.model.mean_call(GroupedBatch(obs=self.obs, actions=self.act))
+        for buf, o in zip(self.obs, state_to_grouped(self.model.spec, self.ns)):
+            buf.copy_(o)
+
+
 class WorldModel:
+    GRAPH_DEVICES = ("cuda",)  # device types whose rollouts replay step graphs
+
     def __init__(self, model: MAVAE):
         self.model = model
         self.spec = model.spec
         self.device = next(model.parameters()).device
         self._mean = _MeanCall(model)
+        self._graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+        self._seen: "OrderedDict[tuple, None]" = OrderedDict()  # keys served once, eagerly
 
     # ------------------------------------------------------------------ api
     @torch.no_grad()
@@ -114,8 +162,26 @@ class WorldModel:
     @torch.no_grad()
     def _rollout(self, obs_g, action_plan):
         """obs_g: per-group [B, A_g, od]; action_plan: per-group
-        [T, B, A_g(, act)].  Spans ``rollout.step`` (the step's
-        ``mean_call``) and ``rollout.refeed`` (its state re-split)."""
+        [T, B, A_g(, act)]; either may be a view of any strides.  On the
+        card a replayed graph a step once the key has been served (module
+        docstring), else the eager loop.  Spans ``rollout.step`` a step
+        (eagerly its ``mean_call``, then ``rollout.refeed``, the state
+        re-split; on the graph the step's copies around ``rollout.replay``)
+        and ``rollout.capture`` before the first step of a capturing
+        request."""
+        key = self._graph_key(obs_g, action_plan)
+        graph = self._graphs.get(key)
+        if graph is None and key in self._seen:
+            with span("rollout.capture"):
+                graph = _StepGraph(self.model, obs_g, tuple(a[0] for a in action_plan), key[0])
+            count("rollout.graph_captures")
+            del self._seen[key]
+            self._graphs[key] = graph
+            while len(self._graphs) > GRAPH_KEYS:
+                self._graphs.popitem(last=False)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return self._replay(graph, obs_g, action_plan)
         states, rewards = [], []
         for t in range(action_plan[0].shape[0]):
             with span("rollout.step"):
@@ -124,7 +190,43 @@ class WorldModel:
             rewards.append(rw)
             with span("rollout.refeed"):
                 obs_g = state_to_grouped(self.spec, ns)
-        return torch.stack(states), torch.stack(rewards)
+        count("rollout.eager_steps", len(states))
+        out = torch.stack(states), torch.stack(rewards)
+        if key is not None:
+            self._seen[key] = None
+            while len(self._seen) > GRAPH_KEYS:
+                self._seen.popitem(last=False)
+        return out
+
+    def _graph_key(self, obs_g, action_plan) -> Optional[tuple]:
+        """What a step graph is captured for (module docstring), or None
+        where the eager loop serves."""
+        tensors = [*self.model.parameters(), *self.model.buffers()]
+        dev = tensors[0].device
+        if dev.type not in self.GRAPH_DEVICES or any(o.dtype != torch.float32 for o in obs_g):
+            return None
+        inputs = (*obs_g, *(a[0] for a in action_plan))
+        return (dev, tuple((tuple(x.shape), x.dtype) for x in inputs), tuple(t.data_ptr() for t in tensors))
+
+    def _replay(self, graph: _StepGraph, obs_g, action_plan):
+        """The request on ``graph``: the start copied in, then per step the
+        actions copied in, a replay, the outputs copied out into tensors of
+        this request's own."""
+        horizon = action_plan[0].shape[0]
+        states = torch.empty((horizon, *graph.ns.shape), dtype=graph.ns.dtype, device=graph.ns.device)
+        rewards = torch.empty((horizon, *graph.rw.shape), dtype=graph.rw.dtype, device=graph.rw.device)
+        for buf, o in zip(graph.obs, obs_g):
+            buf.copy_(o)
+        for t in range(horizon):
+            with span("rollout.step"):
+                for buf, a in zip(graph.act, action_plan):
+                    buf.copy_(a[t])
+                with span("rollout.replay"):
+                    graph.graph.replay()
+                states[t].copy_(graph.ns)
+                rewards[t].copy_(graph.rw)
+        count("rollout.graph_replays", horizon)
+        return states, rewards
 
     def _as_batch(self, obs, actions) -> GroupedBatch:
         if isinstance(obs, GroupedBatch):

@@ -277,6 +277,11 @@ class MAVAE(nn.Module):
         self.register_buffer(
             "_perm", torch.tensor(spec.perm_from_grouped, device=device), persistent=False
         )
+        # each group's agent indices on the device once, so a call copies
+        # nothing from the host (on the card such a copy waits for the
+        # device, and no CUDA graph can capture it)
+        for g, (_, idxs) in enumerate(spec.groups):
+            self.register_buffer(f"_agent_ids{g}", torch.tensor(idxs, device=device), persistent=False)
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, spec: AgentSpec, device=None,
@@ -286,6 +291,10 @@ class MAVAE(nn.Module):
     @property
     def _needs_base(self) -> bool:
         return self.residual_state or self.state_skip
+
+    def _group_ids(self, g: int) -> torch.Tensor:
+        """Group ``g``'s agent indices [A_g] (int64, on the model's device)."""
+        return getattr(self, f"_agent_ids{g}")
 
     def _base(self, batch: GroupedBatch) -> Optional[torch.Tensor]:
         """The current global state [B, Σobs] where the decoder reads it."""
@@ -299,10 +308,10 @@ class MAVAE(nn.Module):
         [B, A, D] (grouped order) or None."""
         f, s = self.obs_features, self.shared_latent
         mus, logvars, aembs, smus, slvs, dets = [], [], [], [], [], []
-        for g, (_, idxs) in enumerate(self.spec.groups):
+        for g in range(len(self.spec.groups)):
             obs = batch.obs[g]
             if agent_ids is None:
-                ids = torch.tensor(idxs, device=obs.device)[None, :].expand(obs.shape[0], -1)
+                ids = self._group_ids(g)[None, :].expand(obs.shape[0], -1)
                 emb = self.idx_emb(ids)
             else:
                 emb = self.idx_emb.take(agent_ids[g])  # ids from data: JAX's rule
@@ -385,8 +394,8 @@ class MAVAE(nn.Module):
     def _add_action_delta(self, recon: torch.Tensor, aemb: torch.Tensor) -> torch.Tensor:
         """The direct action -> own-obs-delta pathway (``action_delta_head``)."""
         deltas = tuple(
-            self.action_delta_heads[g](aemb[:, list(idxs), :])
-            for g, (_, idxs) in enumerate(self.spec.groups)
+            self.action_delta_heads[g](aemb[:, self._group_ids(g), :])
+            for g in range(len(self.spec.groups))
         )
         return recon + agent_order_concat(self.spec, deltas).to(recon.dtype)
 

@@ -12,12 +12,20 @@ accurate expf); the per-row KL and the huber mean rtol 1e-5, because the
 sums are taken in another order.  K3's gradients in bf16/f16 are held to
 one ulp of their type (both sides compute in f32 and round once).  K3 sums
 in a fixed order, so two calls on the same inputs are bit-equal.
+
+``WorldModel``'s rollout step graphs on a model of the tag_wm widths
+(simple_tag 30/10/20, ``examples/world_model.yaml``, bf16), discrete and
+continuous: the graphed requests against the eager loop of the same
+model, bit for bit (the same kernels on the same inputs).
 """
+
+from pathlib import Path
 
 import pytest
 import torch
 
-from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig
+from mfvae_tpu_torch import inference
+from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig, load_config
 from mfvae_tpu_torch.data.transitions import VaeBatch
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch
 from mfvae_tpu_torch.ops import fused_elbo as ops
@@ -224,3 +232,132 @@ def test_host_backend_launches_no_kernel_on_the_card(dev, tmp_path):
     result = exp.run()
     assert profiling.counters() == {}
     assert math.isfinite(result["loss_train"])
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+B, T = 32, 5
+
+
+def _tag_world_model(dev, discrete=True):
+    from mfvae_tpu_torch.envs.mpe import make
+    from mfvae_tpu_torch.training.experiment import build_spec
+
+    cfg = load_config(str(EXAMPLES / "world_model.yaml"))
+    cfg.model.discrete_act = discrete
+    e = cfg.env
+    env = make(e.name, device=dev, num_good_agents=e.num_good_agents, num_adversaries=e.num_adversaries,
+               num_obs=e.num_obs, max_steps=e.max_steps, discrete_actions=discrete)
+    return MAVAE.from_config(cfg.model, build_spec(env), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _request(model, dev, seed, b=B, t=T):
+    """(start obs, plan) per group, as views of other strides, as the
+    planners pass them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    obs = tuple(torch.randn(len(i), b, od, generator=g, device=dev).transpose(0, 1) for (od, _), i in model.spec.groups)
+    if model.discrete_act:
+        plan = tuple(torch.randint(0, ad, (t, b, 2 * len(i)), generator=g, device=dev)[..., ::2]
+                     for (_, ad), i in model.spec.groups)
+    else:
+        plan = tuple(torch.rand(t, b, len(i), ad, generator=g, device=dev) * 2 - 1 for (_, ad), i in model.spec.groups)
+    return obs, plan
+
+
+def _eager(model, obs, plan):
+    return inference.WorldModel(model)._rollout(obs, plan)  # a key's first request runs eagerly
+
+
+def _equal(got, want):
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("discrete", [True, False], ids=["discrete", "continuous"])
+def test_rollout_graph_replays_the_eager_loop(dev, discrete):
+    model = _tag_world_model(dev, discrete)
+    wm = inference.WorldModel(model)
+    (obs_a, plan_a), (obs_b, plan_b) = _request(model, dev, 1), _request(model, dev, 2)
+    want_a, want_b = _eager(model, obs_a, plan_a), _eager(model, obs_b, plan_b)
+    profiling.reset_counters()
+    _equal(wm._rollout(obs_a, plan_a), want_a)  # eager
+    got_a = wm._rollout(obs_a, plan_a)  # captured, then replayed
+    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T}
+    kept = tuple(x.clone() for x in got_a)
+    got_b = wm._rollout(obs_b, plan_b)
+    _equal(got_a, want_a)
+    _equal(got_b, want_b)
+    _equal(got_a, kept)  # request 1's tensors after request 2
+    _equal(wm._rollout(obs_b, tuple(p[:2] for p in plan_b)), tuple(x[:2] for x in want_b))  # another horizon
+    assert profiling.counters()["rollout.graph_captures"] == 1
+
+
+def test_rollout_graph_reads_updated_and_replaced_parameters(dev):
+    model = _tag_world_model(dev)
+    wm = inference.WorldModel(model)
+    obs, plan = _request(model, dev, 3)
+    for _ in range(2):
+        wm._rollout(obs, plan)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.01)  # in place, as optimizer.step
+    want = _eager(model, obs, plan)
+    profiling.reset_counters()
+    _equal(wm._rollout(obs, plan), want)
+    assert profiling.counters() == {"rollout.graph_replays": T}
+    model.reward_linear.kernel = torch.nn.Parameter(2 * model.reward_linear.kernel.detach())
+    want = _eager(model, obs, plan)
+    profiling.reset_counters()
+    for _ in range(2):
+        _equal(wm._rollout(obs, plan), want)
+    # a new key: served eagerly, then captured
+    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1,
+                                    "rollout.graph_replays": T}
+
+
+def test_rollout_graph_keeps_the_newest_keys(dev):
+    model = _tag_world_model(dev)
+    wm = inference.WorldModel(model)
+    sizes = [8, 16, 24, 32, 40]
+    profiling.reset_counters()
+    for b in sizes:
+        obs, plan = _request(model, dev, b, b=b, t=2)
+        for _ in range(2):
+            wm._rollout(obs, plan)
+    assert [key[1][0][0][0] for key in wm._graphs] == sizes[1:]
+    assert profiling.counters() == {"rollout.eager_steps": 10, "rollout.graph_captures": 5, "rollout.graph_replays": 10}
+    obs, plan = _request(model, dev, 0, b=8, t=2)
+    wm._rollout(obs, plan)  # evicted: eager again
+    assert profiling.counters()["rollout.eager_steps"] == 12
+    obs64 = tuple(o.double() for o in obs)  # the refeed is float32: another start stays eager
+    for _ in range(2):
+        wm._rollout(obs64, plan)
+    assert profiling.counters()["rollout.eager_steps"] == 16 and len(wm._graphs) == 4
+
+
+def test_replayed_rollout_shows_its_kernels_and_spans_under_a_profiler(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _tag_world_model(dev)
+    obs, plan = _request(model, dev, 4)
+
+    def traced(wm):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wm._rollout(obs, plan)
+            torch.cuda.synchronize(dev)
+        events = prof.events()
+        host = [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False) and not e.name.startswith(("Memcpy", "Memset"))]
+        return host, len(kernels)
+
+    host, eager = traced(inference.WorldModel(model))
+    assert host.count("mfvae.rollout.step") == T and "mfvae.rollout.replay" not in host
+    wm = inference.WorldModel(model)
+    for _ in range(2):
+        wm._rollout(obs, plan)
+    host, replayed = traced(wm)
+    assert host.count("mfvae.rollout.step") == host.count("mfvae.rollout.replay") == T
+    assert "mfvae.rollout.refeed" not in host and "mfvae.rollout.capture" not in host
+    # the graph's kernels (the step, its refeed) and the copies around it;
+    # eagerly the strided start costs a few kernels more
+    assert eager - 10 <= replayed <= eager + 6 * T + 2, (eager, replayed)

@@ -18,11 +18,22 @@
   tests/test_torch_env.py).
 - ``rollout_accuracy`` under random, pursuit and sticky collection gives
   every metric finite.
+- The rollout's CUDA graphs: on the CPU ``_rollout`` runs eagerly and
+  counts its steps; with the capture replaced by running the step
+  (``_EagerStepGraph``), the graphed path's bookkeeping (capture on a
+  key's second request, replays, eviction of the oldest of
+  ``GRAPH_KEYS``, a new key for a replaced parameter) and its copies give
+  the eager loop's outputs bit for bit.  The card's own graphs are
+  tested in ``tests/test_torch_cuda.py``.
+- The agent-index buffers of ``MAVAE``: out of the state dict, and
+  ``encode``/``_add_action_delta`` give the values of the ids built from
+  host lists, bit for bit.
 
 Float32 on both sides, JAX matmul precision "highest".
 """
 
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -41,16 +52,19 @@ from mfvae_tpu.models.mavae import MAVAE as JMAVAE
 from mfvae_tpu.rollout_eval import flatten_global_state as j_flatten
 from mfvae_tpu.training.experiment import build_spec as j_build_spec
 from mfvae_tpu.training.trainer import make_action_sampler as j_make_action_sampler
+from mfvae_tpu_torch import inference
 from mfvae_tpu_torch.config import ModelConfig, load_config
 from mfvae_tpu_torch.envs.mpe import MPEState as TState
 from mfvae_tpu_torch.envs.mpe import SimpleTagEnv as TEnv
 from mfvae_tpu_torch.inference import WorldModel
 from mfvae_tpu_torch.models.convert import params_from_jax
-from mfvae_tpu_torch.models.mavae import MAVAE, GroupedBatch
+from mfvae_tpu_torch.models.mavae import MAVAE, GroupedBatch, agent_order_concat
 from mfvae_tpu_torch.rollout_eval import flatten_global_state, ground_truth, rollout_accuracy, score
 from mfvae_tpu_torch.training.experiment import Experiment, build_spec
 from tests.test_torch_experiment import one_torch_thread  # noqa: F401
-from tests.test_torch_options import EXAMPLES, tiny
+from mfvae_tpu_torch.utils import profiling
+from tests.test_torch_options import EXAMPLES, OPTIONS, tiny
+from tests.test_torch_options import build as build_options
 from tests.test_torch_unroll import SMALL, build
 
 B, T = 4, 5
@@ -231,3 +245,137 @@ def test_rollout_accuracy_is_finite(policy):
                            horizons=(1, 5, 25), n_starts=8, burn_in=4, policy=policy)
     assert len(out) == 15 and all(math.isfinite(v) for v in out.values())
     assert out["state_huber_persist/1"] == out["state_huber_frozen/1"]
+
+
+def _grouped_plan(tspec, seed, t=T, b=B):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(0, 5, size=(t, b, len(i))).astype(np.int32)) for _, i in tspec.groups)
+
+
+def test_rollout_on_the_cpu_runs_eagerly_and_counts_its_steps():
+    jspec, tspec, _, _, tmodel = build()
+    wm = WorldModel(tmodel)
+    _, tb = _batch(jspec, 5)
+    plan = _grouped_plan(tspec, 6)
+    profiling.reset_counters()
+    for _ in range(3):
+        wm._rollout(tb.obs, plan)
+    assert profiling.counters() == {"rollout.eager_steps": 3 * T}
+    assert not wm._graphs and not wm._seen
+
+
+class _EagerStepGraph(inference._StepGraph):
+    """The step graph with its capture replaced by running the step: a
+    replay runs it again, so the graphed path runs on the CPU."""
+
+    def _capture(self):
+        for buf in self.obs + self.act:
+            buf.zero_()
+        self.step()
+        self.graph = types.SimpleNamespace(replay=self.step)
+
+
+@pytest.fixture
+def eager_graphs(monkeypatch):
+    monkeypatch.setattr(WorldModel, "GRAPH_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(inference, "_StepGraph", _EagerStepGraph)
+    profiling.reset_counters()
+
+
+def _eager(model, obs, plan):
+    """The eager loop's rollout (a new WorldModel serves a key's first
+    request eagerly)."""
+    return WorldModel(model)._rollout(obs, plan)
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_graphed_path_replays_the_eager_loop(eager_graphs):
+    jspec, tspec, _, _, tmodel = build()
+    wm = WorldModel(tmodel)
+    (_, a), (_, b) = _batch(jspec, 7), _batch(jspec, 8)
+    # views of other strides, as the planners pass them
+    obs_a = tuple(o.transpose(0, 1).contiguous().transpose(0, 1) for o in a.obs)
+    plan_a, plan_b = _grouped_plan(tspec, 9), _grouped_plan(tspec, 10)
+    plan_a = tuple(torch.cat([p, p], dim=-1)[..., ::2] for p in plan_a)
+    first = wm._rollout(obs_a, plan_a)  # eager: the key's first request
+    assert profiling.counters() == {"rollout.eager_steps": T}
+    second = wm._rollout(obs_a, plan_a)  # captures, then replays
+    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T}
+    _equal(first, second)
+    kept = tuple(x.clone() for x in second)
+    got_b = wm._rollout(b.obs, plan_b)
+    _equal(got_b, _eager(tmodel, b.obs, plan_b))
+    _equal(second, kept)  # a request's outputs are its own
+    _equal(wm._rollout(obs_a, tuple(p[:2] for p in plan_a)), tuple(x[:2] for x in first))  # another horizon
+    assert profiling.counters()["rollout.graph_captures"] == 1 and len(wm._graphs) == 1
+
+
+def test_graphed_path_reads_updated_and_replaced_parameters(eager_graphs):
+    jspec, tspec, _, _, tmodel = build()
+    wm = WorldModel(tmodel)
+    _, tb = _batch(jspec, 11)
+    plan = _grouped_plan(tspec, 12)
+    for _ in range(2):
+        wm._rollout(tb.obs, plan)
+    with torch.no_grad():
+        for p in tmodel.parameters():
+            p.mul_(1.01)  # in place, as optimizer.step: the same graph
+    _equal(wm._rollout(tb.obs, plan), _eager(tmodel, tb.obs, plan))
+    assert profiling.counters()["rollout.graph_captures"] == 1
+    tmodel.reward_linear.kernel = torch.nn.Parameter(2 * tmodel.reward_linear.kernel.detach())
+    want = _eager(tmodel, tb.obs, plan)
+    for captures in (1, 2):  # a new key: served eagerly, then captured
+        _equal(wm._rollout(tb.obs, plan), want)
+        assert profiling.counters()["rollout.graph_captures"] == captures
+    # the key's first request, the new key's first one and the two references
+    assert profiling.counters()["rollout.eager_steps"] == 4 * T
+
+
+def test_graphed_path_keeps_the_newest_keys(eager_graphs):
+    jspec, tspec, _, _, tmodel = build()
+    wm = WorldModel(tmodel)
+    sizes = [1, 2, 3, 4, 5]
+    assert len(sizes) == inference.GRAPH_KEYS + 1
+    for b in sizes:
+        _, tb = _batch(jspec, b, b=b)
+        plan = _grouped_plan(tspec, b, t=2, b=b)
+        for _ in range(2):
+            wm._rollout(tb.obs, plan)
+    assert [key[1][0][0][0] for key in wm._graphs] == sizes[1:]  # B of each kept key, oldest first
+    assert profiling.counters() == {"rollout.eager_steps": 10, "rollout.graph_captures": 5, "rollout.graph_replays": 10}
+
+
+def test_agent_id_buffers_stay_out_of_the_state_dict():
+    _, tspec, _, variables, tmodel = build()
+    assert set(tmodel.state_dict()) == {name for name, _ in tmodel.named_parameters()}
+    assert [tmodel._group_ids(g).tolist() for g in range(len(tspec.groups))] == [list(i) for _, i in tspec.groups]
+    # a checkpoint made without them: the JAX tree's parameters, and the
+    # state dict the port saved before the buffers were there
+    fresh = MAVAE.from_config(ModelConfig(**SMALL), tspec, device="cpu")
+    fresh.load_state_dict(params_from_jax(variables), strict=True)
+    fresh.load_state_dict({name: p.detach().clone() for name, p in tmodel.named_parameters()}, strict=True)
+
+
+@pytest.mark.parametrize("name", ["action_delta_head", "world_model"])
+def test_encode_and_action_delta_match_host_built_ids(name, monkeypatch):
+    _, _, tmodel, _, tbatch = build_options(OPTIONS[name])
+    spec = tmodel.spec
+    with torch.no_grad():
+        got = tmodel.encode(tbatch), tmodel.mean_call(tbatch)
+        if tmodel.action_delta_head:
+            recon = torch.randn(tbatch.obs[0].shape[0], sum(spec.obs_dims), generator=torch.Generator().manual_seed(0))
+            aemb = tmodel.encode(tbatch)[2]
+            old = recon + agent_order_concat(spec, tuple(
+                tmodel.action_delta_heads[g](aemb[:, list(idxs), :]) for g, (_, idxs) in enumerate(spec.groups)))
+            torch.testing.assert_close(tmodel._add_action_delta(recon, aemb), old, rtol=0, atol=0)
+        # the ids as each call built them from the host before
+        monkeypatch.setattr(tmodel, "_group_ids", lambda g: torch.tensor(spec.groups[g][1]))
+        want = tmodel.encode(tbatch), tmodel.mean_call(tbatch)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if x is not None:
+                torch.testing.assert_close(x, y, rtol=0, atol=0)
