@@ -57,10 +57,12 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    must be there afterwards.
 13. examples/world_model_control.yaml (sticky 0.95, unroll_steps 8,
    grad_clip 10, action_delta_head, decoders over a 15,900-wide input) on
-   plain ops for 2 epochs; with model.use_pallas=true it must raise
-   NotImplementedError, as in the JAX package.
-14. examples/world_model_unroll.yaml with train.n_envs=4 on plain ops for
-   1 epoch: per-shard capacity 2,560, divisible by sample_num 128.
+   plain ops for 2 epochs, and with model.use_pallas=true for 1 epoch,
+   where the JAX package refuses it: K1 = K2 = 8 a train step (80), K3w =
+   2 a step (20), K3 = 0.
+14. examples/world_model_unroll.yaml with model.use_pallas=true for 1
+   epoch (K1 = K2 = 80, K3w = 20, K3 = 0); with train.n_envs=4 on plain
+   ops for 1 epoch: per-shard capacity 2,560, divisible by sample_num 128.
 15. Serving the model of phase 13: WorldModel.predict on a buffer batch
    bit-equal to model.mean_call; a T = 25, B = 256 rollout, finite, whose
    first step is bit-equal to predict (and its time by CUDA events);
@@ -169,7 +171,17 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    float32): the card's mean_call within 1e-5 of the CPU's (over the
    largest output), export -> import and the numpy pickle round trip
    bit-equal, a pickle of another class refused.
-23. (No phase: the kernel list moved to 25, then to 26, then to 27.)
+23. (Run after phase 14, on its kernel run's trained state and ring.) One
+   unroll train step of examples/world_model_unroll.yaml at full width, W
+   = 8 over B = 256 windows with episode ends, by each route from one
+   state, windows and eps: at float32 compute the losses within rtol 1e-5
+   (tests/test_torch_cuda.py's route tolerance) and each leaf's gradient
+   within 1e-5 of its norm (tests/test_torch_unroll.py holds it at 1e-6 on
+   the CPU), at the recipe's bf16 the losses within rtol 1e-4 (phase 6's);
+   the kernel route launches K1 = K2 = 8, K3w = 2 and no K3, the plain
+   route nothing; each route's step timed (CUDA events, median of 5).  K3w against its plain version at the
+   tag_unroll.train_w8 cell's shapes (32,768 rows of 5,660 and of 40, f32;
+   rtol 1e-5, twice bit-equal), timed as in phase 3 beside its bytes bound.
 24. Scale-out at full width (simple_tag 30/10/20, 40 agents), printed
    beside the card's name and power limit.  (a) examples/data_parallel.yaml
    (8 envs, batch 4,096) with model.use_pallas=true for 2 epochs through
@@ -223,7 +235,9 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    bit-equal.  (f) K1-K3 at the b4096 shapes ([163,840, 64] latents, the
    state and reward branches of K3): each held against its plain version
    on the same tensors with phase 3's gates, then timed as in phase 3.
-27. The kernel list as one JSON line, the card, and the result line.
+27. The kernel list as one JSON line (K1-K3, and K3w at phase 23's state
+   shape), the card, and the result line.  Every phase's launch counts
+   cover K1-K3w.
 
 Phases 4-22 and 24-26 print their epoch walls, launches and losses.
 """
@@ -252,13 +266,13 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-# K1-K3's launch counters (mfvae_tpu_torch/utils/profiling.py) and the kernel each counts
+# K1-K3w's launch counters (mfvae_tpu_torch/utils/profiling.py) and the kernel each counts
 KERNEL_COUNTERS = {"k1.launches": "reparam_kl_fwd_kernel", "k2.launches": "reparam_kl_bwd_kernel",
-                   "k3.launches": "huber_mean_kernel"}
+                   "k3.launches": "huber_mean_kernel", "k3w.launches": "huber_rows_wsum_kernel"}
 
 
 def launch_counts() -> dict:
-    """K1-K3's launch counters since the last ``reset_counters``, 0 where
+    """K1-K3w's launch counters since the last ``reset_counters``, 0 where
     a kernel has not launched."""
     from mfvae_tpu_torch.utils import profiling
 
@@ -1068,7 +1082,7 @@ def vae_phase(tmp: str, dev) -> dict:
 
 
 def _trace_kernel_counts(trace_dir: Path) -> dict:
-    """Device kernels named like K1-K3 in the one torch.profiler trace
+    """Device kernels named like K1-K3w in the one torch.profiler trace
     under ``trace_dir`` (the Chrome trace's "kernel" events)."""
     files = list(trace_dir.glob("*.pt.trace.json"))
     check(len(files) == 1, f"expected one trace file under {trace_dir}, found {[f.name for f in files]}")
@@ -1103,7 +1117,7 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
     t_phase = time.perf_counter()
     print(f"[22] card: {smi}", flush=True)
     out, launches = {}, {}
-    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20}
+    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20, "k3w.launches": 0}
 
     def full_width(cfg):
         check((cfg.env.name, cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs)
@@ -1594,7 +1608,7 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     w1, plain = runs["world 1 (NCCL)"], runs["unsharded"]
-    want2 = {"k1.launches": 20, "k2.launches": 20, "k3.launches": 40}
+    want2 = {"k1.launches": 20, "k2.launches": 20, "k3.launches": 40, "k3w.launches": 0}
     check(w1["launches"] == want2 and plain["launches"] == want2,
           f"data_parallel.yaml launches {w1['launches']}, {plain['launches']}, expected {want2}")
     check(w1["losses"] == plain["losses"] and w1["steps"] == plain["steps"],
@@ -1632,7 +1646,7 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
     ranks = [json.load(open(f"{rank_dir}/rank{r}.json")) for r in range(2)]
     out["ranks_wall_s"] = time.perf_counter() - t_ranks
 
-    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20}
+    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20, "k3w.launches": 0}
     gaps = {}
     for r, res in enumerate(ranks):
         dp, tpe = res["dp"], res["tp"]
@@ -1842,12 +1856,113 @@ def reference_dicts_phase(dev) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     want = {"k1.launches": REFERENCE_STEPS + 2, "k2.launches": REFERENCE_STEPS,
-            "k3.launches": 2 * REFERENCE_STEPS + 4}
+            "k3.launches": 2 * REFERENCE_STEPS + 4, "k3w.launches": 0}
     print(f"[25] launches {launches} (the kernel route's {REFERENCE_STEPS} steps and 2 forwards)", flush=True)
     check(launches == want, f"phase 25: launch counts {launches}, expected {want}")
     out["launches"] = {"reference dicts: Adam steps + permuted ids": launches}
     out["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"[25] phase wall {out['phase_wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------ 23. the unroll step by both routes
+UNROLL_B = 256  # windows of phase 23's step
+K3W_ROWS = 8 * 4096  # K3w's rows in the tag_unroll.train_w8 cell: W·B
+
+
+def unroll_routes_phase(exp, dev, median_ms, bound) -> dict:
+    """Phase 23 (the module docstring): one unroll step by each route from
+    ``exp``'s trained state on windows of its ring, then K3w alone at the
+    unroll cell's shapes.  Returns the phase's numbers."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from mfvae_tpu_torch.models.mavae import MAVAE
+    from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.trainer import create_train_state
+    from mfvae_tpu_torch.training.unroll import make_unroll_loss_fn, make_unroll_train_step
+    from mfvae_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    cfg, spec = exp.cfg, exp.spec
+    w = cfg.train.unroll_steps
+    check(w == 8 and cfg.model.det_features == 128 and not cfg.model.fused_decoders and cfg.train.grad_clip == 10.0,
+          "phase 23 runs world_model_unroll.yaml: W 8, det 128, unfused decoders, clip 10")
+    buffer = dataclasses.replace(exp.buffer, sample_batch_size=UNROLL_B)
+    g = torch.Generator(device=dev).manual_seed(6)
+    windows = buffer.sample_window(exp.carry.buffer_state, g, w, block=cfg.train.sample_num).experience
+    done = windows.done.clone()
+    done[::7, 2] = 1.0  # episode ends inside some windows, so the masks weigh
+    windows = windows._replace(done=done)
+    eps = torch.randn(w, UNROLL_B, spec.n_agents, cfg.model.obs_features, generator=g, device=dev)
+    trained = exp.carry.train_state.model.state_dict()
+    out = {"windows": UNROLL_B, "unroll_steps": w}
+    for dtype in ("float32", "bfloat16"):
+        model = MAVAE.from_config(dataclasses.replace(cfg.model, compute_dtype=dtype), spec, device=dev)
+        model.load_state_dict(trained)
+        res = {}
+        for use_pallas in (False, True):
+            opts = dict(use_pallas=use_pallas, stop_gradient=cfg.train.unroll_stop_gradient,
+                        mean_feedback=cfg.train.unroll_mean_feedback)
+            m = copy.deepcopy(model)
+            o = make_unroll_loss_fn(spec, cfg.loss, w, **opts)(m, windows, eps=eps)
+            o.loss.backward()
+            grads = {n: p.grad for n, p in m.named_parameters()}
+            step = make_unroll_train_step(spec, cfg.loss, w, **opts)
+            state = create_train_state(copy.deepcopy(model), cfg.train)
+            profiling.reset_counters()
+            state, _ = step(state, windows, eps=eps)
+            torch.cuda.synchronize()
+            res[use_pallas] = ([float(x.detach()) for x in o], grads, profiling.counters())
+            del m
+            times = []
+            for _ in range(5):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(state, windows, eps=eps)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            out[f"{dtype}_{'kernels' if use_pallas else 'plain'}_step_ms"] = statistics.median(times)
+        (lp, pp, cp), (lk, pk, ck) = res[False], res[True]
+        check(cp == {} and ck == {"k1.launches": w, "k2.launches": w, "k3w.launches": 2},
+              f"phase 23 {dtype}: launches plain {cp}, kernels {ck}")
+        rel = [abs(a - b) / abs(a) for a, b in zip(lp, lk)]
+        out[f"{dtype}_loss_rel_gaps"] = rel
+        print(f"[23] {dtype}: losses plain {lp} kernels {lk} rel {['%.3e' % r for r in rel]}; "
+              f"launches kernels {ck}; step ms plain {out[f'{dtype}_plain_step_ms']:.3f} "
+              f"kernels {out[f'{dtype}_kernels_step_ms']:.3f}", flush=True)
+        if dtype == "float32":
+            check(max(rel) <= 1e-5, f"phase 23 float32: losses differ between the routes beyond rtol 1e-5: {rel}")
+            worst = max(float(torch.linalg.vector_norm(pk[n] - g) / torch.linalg.vector_norm(g)) for n, g in pp.items())
+            out["float32_worst_leaf_grad_gap"] = worst
+            print(f"[23] float32: worst leaf's gradient gap {worst:.3e} of its norm", flush=True)
+            check(worst <= 1e-5, f"phase 23 float32: a leaf's gradient differs beyond 1e-5 of its norm ({worst:.3e})")
+        else:
+            check(max(rel) <= 1e-4, f"phase 23 bfloat16: losses differ between the routes beyond rtol 1e-4: {rel}")
+    # K3w at the cell's shapes, f32, against its plain version, then timed
+    k3w = {}
+    for name, d in (("state", sum(spec.obs_dims)), ("reward", spec.n_agents)):
+        gx = torch.Generator(device=dev).manual_seed(7)
+        x = 2 * torch.randn(K3W_ROWS, d, generator=gx, device=dev)
+        y = torch.randn(K3W_ROWS, d, generator=gx, device=dev)
+        wt = (torch.rand(K3W_ROWS, generator=gx, device=dev) < 0.72).float()
+        h, want = ops.huber_rows_wsum(x, y, wt), ops._huber_rows_wsum_plain(x, y, wt)
+        err = abs(float(h) - float(want)) / abs(float(want))
+        check(err <= 1e-5 and torch.equal(ops.huber_rows_wsum(x, y, wt), h),
+              f"K3w {name} ({K3W_ROWS} x {d}): relative error {err:.3e} or not bit-equal")
+        nbytes = 2 * x.numel() * 4 + 4 * K3W_ROWS + 4
+        bound_ms, bound_by = bound(nbytes, 6 * x.numel())
+        k3w[name] = {"rows": K3W_ROWS, "d": d, "rel_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "ms": median_ms(lambda: ops.huber_rows_wsum(x, y, wt)),
+                     "plain_ms": median_ms(lambda: ops._huber_rows_wsum_plain(x, y, wt))}
+        print(f"[23] K3w {name} [{K3W_ROWS}, {d}]: {json.dumps(k3w[name])}", flush=True)
+        del x, y
+    out["k3w"] = k3w
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[23] phase wall {out['phase_wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -1969,7 +2084,7 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     n = kernel_steps + 1
-    want = {"k1.launches": n, "k2.launches": n, "k3.launches": 2 * n}
+    want = {"k1.launches": n, "k2.launches": n, "k3.launches": 2 * n, "k3w.launches": 0}
     print(f"[26] launches {launches}: the kernel-route rows' {kernel_steps} steps and the b4096 step", flush=True)
     check(launches == want, f"phase 26: launch counts {launches}, expected {want}")
     out["launches"] = {"bench: entry points + det128 b4096 routes": launches}
@@ -2272,9 +2387,11 @@ def main() -> None:
         check(math.isfinite(result["loss_train"]) and math.isfinite(result["loss_test"]),
               f"{label}: non-finite losses")
         if use_pallas:
-            tn = cfg.train.train_num
-            want = {"k1.launches": epochs * tn, "k2.launches": epochs * tn,
-                    "k3.launches": 2 * epochs * tn}
+            # an unroll step: K1/K2 in each of its W window steps, K3w on its two
+            # pooled branches and no K3; a one-step step: K1, K2 and two K3
+            tn, w = cfg.train.train_num, cfg.train.unroll_steps
+            want = {"k1.launches": epochs * tn * w, "k2.launches": epochs * tn * w,
+                    "k3.launches": 0 if w > 1 else 2 * epochs * tn, "k3w.launches": 2 * epochs * tn if w > 1 else 0}
             check(launches == want, f"{label}: launch counts {launches}, expected {want}")
         else:
             check(not any(launches.values()), f"{label}: the plain route launched kernels: {launches}")
@@ -2449,20 +2566,22 @@ def main() -> None:
         print(f"[13] {label}: decoder input width {dec_in}, {exp.carry.train_state.step} unroll steps taken, "
               f"policy carry {[tuple(x.shape) for x in exp.carry.env.policy]}")
         check(dec_in == 15900, f"{label} decoder input {dec_in}, expected 15,900")
-        bad = load_config(control)
-        bad.model.use_pallas = True
-        bad.train.log_dir, bad.train.checkpoint_dir = f"{tmp}/bad", ""
-        try:
-            Experiment(bad).setup()
-        except NotImplementedError as e:
-            print(f"[13] {label} with model.use_pallas=true refused: {e}")
-        else:
-            fail(f"{label} with model.use_pallas=true was not refused")
+        # the kernel route, which the JAX package refuses for unroll_steps > 1
+        exp_k, walls[f"{label}, kernels"], path_launches[label] = drive(
+            load_config(control), True, 1, f"{tmp}/control_k", "13", label)
+        del exp_k
 
-        # ------------------------------------------- 14. world_model_unroll, batched
+        # ------------------------------------------- 14. world_model_unroll
+        unroll_yaml = str(examples / "world_model_unroll.yaml")
+        exp_u, walls["world_model_unroll, kernels"], path_launches["world_model_unroll"] = drive(
+            load_config(unroll_yaml), True, 1, f"{tmp}/unroll_k", "14", "world_model_unroll")
+        # ------------------------------------ 23. one unroll step by both routes
+        unroll_out = unroll_routes_phase(exp_u, dev, median_ms, bound)
+        print(f"[23] unroll routes summary: {json.dumps(unroll_out)}", flush=True)
+        del exp_u
         label = "world_model_unroll n_envs=4"
         exp4, walls[f"{label}, plain"], _ = drive(
-            load_config(str(examples / "world_model_unroll.yaml"), ["train.n_envs=4"]), False, 1,
+            load_config(unroll_yaml, ["train.n_envs=4"]), False, 1,
             f"{tmp}/unroll4", "14", label)
         cap = exp4.buffer.max_length
         print(f"[14] {label}: shards {tuple(exp4.carry.buffer_state.data.rewards.shape)}, per-shard capacity {cap}")
@@ -2714,6 +2833,15 @@ def main() -> None:
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
             "at_b4096": bench_out["kernels_b4096"][key],
         })
+    # K3w, at the unroll cell's state shape (phase 23); the JAX package has no such kernel
+    k = unroll_out["k3w"]["state"]
+    line.append({
+        "name": "K3w huber_rows_wsum", "ok": True, "route": "cuda", "source": src, "replaces": None,
+        "launches": main_launches["k3w.launches"], "max_rel_err": k["rel_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+        "launches_by_path": {path: n["k3w.launches"] for path, n in path_launches.items()},
+        "at_unroll_cell": unroll_out["k3w"],
+    })
     rk = kernels["K3_reward"]
     print(f"[27] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")

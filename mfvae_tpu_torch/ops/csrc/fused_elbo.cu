@@ -11,6 +11,8 @@
 //   K2 reparam_kl_bwd   replaces mfvae_tpu/ops/fused_elbo.py _bwd_kernel
 //   K3 huber_mean       replaces mfvae_tpu/ops/fused_elbo.py _huber_kernel
 //                       (:164, launched by _huber_impl :184)
+//   K3w huber_rows_wsum the masked, pooled huber terms of the unroll step
+//                       (training/unroll.py): sum_r w_r mean_d huber(x - y)
 //
 // All three are bound by device-memory bytes: a handful of flops per float
 // read.  The design keeps each tensor to one read and one write.
@@ -260,6 +262,120 @@ int launch_huber_vec(int vec, const void* x, const void* y, float delta, long lo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K3w.  sum_r w[r] * mean_d huber(x[r, d] - y[r, d]) over R rows of d
+// elements, as one f32: the flat sum of w[row(e)] * huber(e), divided by d
+// at the end.  The same one-launch reduction as K3 (grid-stride packs, the
+// partials summed in a fixed order by the block that arrives last), each
+// element weighted by its row's weight.  A pack holds VEC elements of at
+// most two rows (the wrapper takes VEC > 1 only where d >= VEC); a thread
+// finds the (row, column) of its first pack with one division and moves
+// them on by the hop's quotient and remainder, with no division in the
+// loop.  The weights, 4 bytes a row, are read once a pack, from cache.
+template <typename T, int VEC>
+__device__ __forceinline__ float huber_wpack(const Pack<T, VEC>& a, const Pack<T, VEC>& b,
+                                             const float* __restrict__ w, long long row,
+                                             long long col, long long d, float delta,
+                                             float acc) {
+  const float w0 = w[row];
+  const float w1 = col + VEC > d ? w[row + 1] : w0;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+    acc += (col + i < d ? w0 : w1) * huber_term(to_f32(a.v[i]), to_f32(b.v[i]), delta);
+  return acc;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kReduceThreads, kHuberBlocksPerSm)
+huber_rows_wsum_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                       const float* __restrict__ w, float delta, long long n, long long d,
+                       int head, unsigned int* __restrict__ arrivals,
+                       float* __restrict__ partials, float* __restrict__ out) {
+  using P = Pack<T, VEC>;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long npacks = (n - head) / VEC;
+  const long long tail = head + npacks * VEC;
+  float acc = 0.f;
+  if (tid < head) acc += w[tid / d] * huber_term(to_f32(x[tid]), to_f32(y[tid]), delta);
+  if (tid < n - tail) {
+    const long long e = tail + tid;
+    acc += w[e / d] * huber_term(to_f32(x[e]), to_f32(y[e]), delta);
+  }
+  const P* xp = reinterpret_cast<const P*>(x + head);
+  const P* yp = reinterpret_cast<const P*>(y + head);
+  const long long hop = stride * VEC;  // elements from one of a thread's packs to the next
+  const long long hop_rows = hop / d, hop_cols = hop - hop_rows * d;
+  long long row = (head + tid * VEC) / d;
+  long long col = head + tid * VEC - row * d;
+  for (long long i = tid; i < npacks; i += kHuberLoads * stride) {
+    P a[kHuberLoads], b[kHuberLoads];
+    long long r[kHuberLoads], c[kHuberLoads];
+#pragma unroll
+    for (int u = 0; u < kHuberLoads; ++u) {
+      r[u] = u == 0 ? row : r[u - 1] + hop_rows;
+      c[u] = u == 0 ? col : c[u - 1] + hop_cols;
+      if (c[u] >= d) {
+        c[u] -= d;
+        ++r[u];
+      }
+      if (i + u * stride < npacks) {
+        a[u] = xp[i + u * stride];
+        b[u] = yp[i + u * stride];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kHuberLoads; ++u)
+      if (i + u * stride < npacks) acc = huber_wpack(a[u], b[u], w, r[u], c[u], d, delta, acc);
+    row = r[kHuberLoads - 1] + hop_rows;
+    col = c[kHuberLoads - 1] + hop_cols;
+    if (col >= d) {
+      col -= d;
+      ++row;
+    }
+  }
+  acc = block_sum(acc);
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) *out = acc / static_cast<float>(d);
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc;
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(*arrivals);
+    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += blockDim.x)
+    s += __ldcg(partials + i);
+  s = block_sum(s);
+  if (threadIdx.x == 0) {
+    *out = s / static_cast<float>(d);
+    *arrivals = 0u;
+  }
+}
+
+template <typename T>
+int launch_wsum_vec(int vec, const void* x, const void* y, const float* w, float delta,
+                    long long n, long long d, int head, int blocks, void* workspace,
+                    float* out, cudaStream_t stream) {
+  constexpr int kPack = 16 / sizeof(T);
+  unsigned int* arrivals = static_cast<unsigned int*>(workspace);
+  float* partials = reinterpret_cast<float*>(arrivals + 1);
+  const T* xt = static_cast<const T*>(x);
+  const T* yt = static_cast<const T*>(y);
+  if (vec == kPack && d >= kPack)
+    huber_rows_wsum_kernel<T, kPack><<<blocks, kReduceThreads, 0, stream>>>(
+        xt, yt, w, delta, n, d, head, arrivals, partials, out);
+  else if (vec == 1 && head == 0)
+    huber_rows_wsum_kernel<T, 1><<<blocks, kReduceThreads, 0, stream>>>(
+        xt, yt, w, delta, n, d, 0, arrivals, partials, out);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,6 +421,27 @@ int mfvae_huber_mean_onepass(const void* x, const void* y, int dtype, float delt
     case 2:
       return launch_huber_vec<__half>(vec, x, y, delta, n, head, blocks, workspace, out,
                                       stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K3w.  x, y [n = rows * d] of one dtype (0 float32, 1 bfloat16, 2
+// float16), w [rows] float32; vec, head, blocks and workspace as for
+// mfvae_huber_mean_onepass (vec > 1 needs d >= vec).
+int mfvae_huber_rows_wsum(const void* x, const void* y, const float* w, int dtype,
+                          float delta, long long n, long long d, int vec, int head,
+                          int blocks, void* workspace, float* out, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_wsum_vec<float>(vec, x, y, w, delta, n, d, head, blocks, workspace, out,
+                                    stream);
+    case 1:
+      return launch_wsum_vec<__nv_bfloat16>(vec, x, y, w, delta, n, d, head, blocks,
+                                            workspace, out, stream);
+    case 2:
+      return launch_wsum_vec<__half>(vec, x, y, w, delta, n, d, head, blocks, workspace, out,
+                                     stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

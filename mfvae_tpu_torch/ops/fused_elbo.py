@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the ELBO elementwise tail, each beside its
 plain PyTorch version.
 
-Three kernels, in ``ops/csrc/fused_elbo.cu`` (built at first use by
+Four kernels, in ``ops/csrc/fused_elbo.cu`` (built at first use by
 ``utils/kernel_build.py``):
 
 - K1 ``reparam_kl_fwd`` replaces ``mfvae_tpu/ops/fused_elbo.py``
@@ -12,8 +12,13 @@ Three kernels, in ``ops/csrc/fused_elbo.cu`` (built at first use by
 - K3 ``huber_mean`` replaces ``_huber_kernel`` (:164, launched by
   ``_huber_impl`` :184): ``mean(0.5q² + δ(|d| - q))`` with ``d = x - y``,
   ``q = min(|d|, δ)``, accumulated in f32.
+- K3w ``huber_rows_wsum``, with no TPU counterpart: the unroll step's
+  masked, pooled huber terms (``training/unroll.py``), ``Σ_r w_r ·
+  mean_d huber(x_rd - y_rd)`` over rows [R, D] with f32 row weights [R].
+  K3 takes an unweighted mean over all elements, so it cannot mask a
+  slot.
 
-All three move a few bytes per flop, so device-memory bytes bound them: at
+All four move a few bytes per flop, so device-memory bytes bound them: at
 the main path's [128·40, 64] latents K1 moves 5.3 MB, K2 7.9 MB and the
 state-branch K3 5.8 MB, 1.6-2.4 µs at 3.35 TB/s.  The kernels read each
 input once and write each output once.  K1 and K2 give a warp to each row,
@@ -30,18 +35,26 @@ allocated once per (device, stream) and reused: kernels on one stream run
 in order, so one call's last block has reset the counter before the next
 call's blocks start, and two streams get two workspaces.
 
+K3w is K3's launch with each element weighted by its row's weight: the
+flat sum of ``w[row]·huber`` divided by D at the end, on K3's geometry and
+K3's workspace (one stream's K3 and K3w calls run in order, so they share
+it).  A 16-byte pack may straddle two rows, so packs need D at least the
+pack's width; narrower rows are read one element at a time.  Its
+backward is plain, as K3's: ``g·w_r/D·clamp(x - y, -δ, δ)``, and the
+weights get no gradient.
+
 Dtypes follow the JAX functions: the wrappers take float32, bfloat16 or
 float16.  ``fused_reparam_kl`` casts its inputs to f32 before K1, as
 ``_fused_fwd_impl`` does, and returns dmu and dlv in mu's and logvar's
-types.  ``huber_mean`` hands x and y of one type to K3 as they are, casts
-both to f32 where their types differ, and returns each gradient in its
-input's type, as ``_huber_bwd`` does.
+types.  ``huber_mean`` (and ``huber_rows_wsum``) hands x and y of one type to
+the kernel as they are, casts both to f32 where their types differ, and
+returns each gradient in its input's type, as ``_huber_bwd`` does.
 
 Routing: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.  Each launch adds one to the counter
-``k1.launches``, ``k2.launches`` or ``k3.launches`` (``utils/profiling.py``
-``count``); under a profiler each launch is the span ``k1``, ``k2`` or
-``k3``.
+``k1.launches``, ``k2.launches``, ``k3.launches`` or ``k3w.launches``
+(``utils/profiling.py`` ``count``); under a profiler each launch is the
+span ``k1``, ``k2``, ``k3`` or ``k3w``.
 
 Under ``train.debug_nans`` (``utils/debug_nans.py``) the wrappers hand
 each kernel's outputs, or its plain version's, to the check set by
@@ -73,7 +86,7 @@ _NAN_CHECK = None  # (where, *outputs) -> None, raising on a NaN; None: off
 
 
 def set_nan_check(check) -> None:
-    """Install ``check(where, *outputs)`` on K1-K3's outputs (None: off)."""
+    """Install ``check(where, *outputs)`` on K1-K3w's outputs (None: off)."""
     global _NAN_CHECK
     _NAN_CHECK = check
 
@@ -96,6 +109,10 @@ def _lib() -> ctypes.CDLL:
             P, P, I, ctypes.c_float, ctypes.c_longlong, I, I, I, P, P, P,
         ]
         lib.mfvae_huber_mean_onepass.restype = I
+        lib.mfvae_huber_rows_wsum.argtypes = [
+            P, P, P, I, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, I, I, I, P, P, P,
+        ]
+        lib.mfvae_huber_rows_wsum.restype = I
         _LIB = lib
     return _LIB
 
@@ -140,7 +157,7 @@ class HuberGeometry(NamedTuple):
 
 def huber_geometry(
     x_ptr: int, y_ptr: int, n: int, itemsize: int, max_blocks: int,
-    single_block_max: int = HUBER_SINGLE_BLOCK_MAX,
+    single_block_max: int = HUBER_SINGLE_BLOCK_MAX, row: int = 0,
 ) -> HuberGeometry:
     """K3's launch geometry for n elements of ``itemsize`` bytes at the
     given addresses.  16-byte loads need x and y at the same offset from a
@@ -149,10 +166,12 @@ def huber_geometry(
     ``_HUBER_LOADS`` loads per tensor a pass, so a block covers
     ``_HUBER_LOADS``·256·vec elements a pass; the grid covers n in one pass,
     capped at ``max_blocks`` (one wave).
-    Up to ``single_block_max`` elements, one block does it all."""
+    Up to ``single_block_max`` elements, one block does it all.  K3w gives
+    its ``row`` width: a pack there may span at most two rows, so 16-byte
+    loads need rows at least a pack wide."""
     pack = 16 // itemsize
     vec, head = 1, 0
-    if n >= pack and x_ptr % 16 == y_ptr % 16:
+    if n >= pack and x_ptr % 16 == y_ptr % 16 and (row == 0 or row >= pack):
         vec, head = pack, (-x_ptr) % 16 // itemsize
     if n <= single_block_max:
         return HuberGeometry(vec, head, 1)
@@ -194,6 +213,14 @@ def _huber_mean_plain(x, y, delta: float = 1.0):
     d = torch.abs(x.to(torch.float32) - y.to(torch.float32))
     q = torch.clamp(d, max=delta)
     return (0.5 * q * q + delta * (d - q)).sum() / x.numel()
+
+
+def _huber_rows_wsum_plain(x, y, w, delta: float = 1.0):
+    """K3w's arithmetic: each row's mean huber in f32 (x and y cast to f32
+    before the difference), weighted and summed."""
+    d = torch.abs(x.to(torch.float32) - y.to(torch.float32))
+    q = torch.clamp(d, max=delta)
+    return torch.sum(torch.mean(0.5 * q * q + delta * (d - q), dim=-1) * w)
 
 
 # -------------------------------------------------------------- kernel calls
@@ -267,6 +294,29 @@ def _huber_mean_cuda(x, y, delta: float, single_block_max: int = HUBER_SINGLE_BL
             )
     _raise_on(err, "huber_mean")
     profiling.count("k3.launches")
+    return out
+
+
+def _huber_rows_wsum_cuda(x, y, w, delta: float, single_block_max: int = HUBER_SINGLE_BLOCK_MAX):
+    _check("huber_rows_wsum", x, y, dtypes=FLOAT_TYPES)
+    _check("huber_rows_wsum", w)
+    if x.dtype != y.dtype:
+        raise TypeError(f"huber_rows_wsum: K3w reads one type, got {x.dtype} and {y.dtype}")
+    rows, d = x.shape
+    out = torch.empty((), device=x.device, dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = _huber_workspace(stream)
+        geo = huber_geometry(x.data_ptr(), y.data_ptr(), rows * d, x.element_size(), ws.numel() - 1,
+                             single_block_max, row=d)
+        with profiling.span("k3w"):
+            err = lib.mfvae_huber_rows_wsum(
+                x.data_ptr(), y.data_ptr(), w.data_ptr(), _HUBER_DTYPE_CODE[x.dtype], float(delta),
+                rows * d, d, geo.vec, geo.head, geo.blocks, ws.data_ptr(), out.data_ptr(), stream,
+            )
+    _raise_on(err, "huber_rows_wsum")
+    profiling.count("k3w.launches")
     return out
 
 
@@ -352,3 +402,42 @@ def huber_mean(x: torch.Tensor, y: torch.Tensor, delta: float = 1.0) -> torch.Te
     if x.dtype != y.dtype:
         x, y = x.to(torch.float32), y.to(torch.float32)
     return _HuberMean.apply(x, y, float(delta))
+
+
+class _HuberRowsWSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, w, delta):
+        ctx.save_for_backward(x, y, w)
+        ctx.delta = delta
+        cuda = _on_cuda(x)
+        out = _huber_rows_wsum_cuda(x, y, w, delta) if cuda else _huber_rows_wsum_plain(x, y, w, delta)
+        _nan_check("K3w huber_rows_wsum", cuda, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w = ctx.saved_tensors
+        d = x.to(torch.float32) - y.to(torch.float32)
+        grad = torch.clamp(d, -ctx.delta, ctx.delta) * ((g * w) / x.shape[1])[:, None]
+        return grad.to(x.dtype), (-grad).to(y.dtype), None, None
+
+
+def huber_rows_wsum(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """``Σ_r w_r · mean_d huber(x_rd - y_rd)`` with threshold ``delta``, as a
+    float32 scalar, for rows x and y [R, D] in float32, bfloat16 or float16
+    (computed in f32) and row weights w [R] in float32.  The gradients come
+    back in x's and y's types; w gets none."""
+    _check("huber_rows_wsum", x, y, dtypes=FLOAT_TYPES)
+    _check("huber_rows_wsum", w)
+    if w.device != x.device:
+        raise ValueError(f"huber_rows_wsum: tensors on {w.device} and {x.device}")
+    if x.dim() != 2 or x.shape != y.shape or tuple(w.shape) != (x.shape[0],):
+        raise ValueError(
+            f"huber_rows_wsum: expected x, y [R, D] and w [R], got {tuple(x.shape)}, "
+            f"{tuple(y.shape)}, {tuple(w.shape)}"
+        )
+    if x.numel() == 0:
+        raise ValueError("huber_rows_wsum: empty input")
+    if x.dtype != y.dtype:
+        x, y = x.to(torch.float32), y.to(torch.float32)
+    return _HuberRowsWSum.apply(x, y, w, float(delta))

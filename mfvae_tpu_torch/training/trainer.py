@@ -173,6 +173,20 @@ def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
     state.step += 1
 
 
+def check_pallas_loss(loss_cfg: LossConfig, s_col_weight: Optional[torch.Tensor] = None) -> None:
+    """The JAX package's guards on the kernel route: the kernels score
+    unweighted huber with no free bits."""
+    if loss_cfg.free_bits != 0.0:
+        raise ValueError("the use_pallas path has no free-bits support")
+    if not loss_cfg.use_huber:
+        raise ValueError("the use_pallas path implements the huber family only")
+    if s_col_weight is not None or loss_cfg.contact_weight != 0.0:
+        raise ValueError(
+            "the use_pallas path has no weighted-state-branch support "
+            "(loss.contact_weight / loss.prey_dist_weight)"
+        )
+
+
 def make_train_step(
     loss_cfg: LossConfig,
     mode: str = "Adam",
@@ -206,15 +220,7 @@ def make_train_step(
     use_art = mode in ("ART", "POPART")
     use_pop = mode == "POPART"
     if use_pallas:
-        if loss_cfg.free_bits != 0.0:
-            raise ValueError("the use_pallas path has no free-bits support")
-        if not loss_cfg.use_huber:
-            raise ValueError("the use_pallas path implements the huber family only")
-        if s_col_weight is not None or loss_cfg.contact_weight != 0.0:
-            raise ValueError(
-                "the use_pallas path has no weighted-state-branch support "
-                "(loss.contact_weight / loss.prey_dist_weight)"
-            )
+        check_pallas_loss(loss_cfg, s_col_weight)
     if use_art and loss_cfg.contact_weight != 0.0:
         raise ValueError(
             "loss.contact_weight reads raw reward targets; ART/POPART "

@@ -11,7 +11,10 @@ arithmetic in plain PyTorch (the kernels are built with -fmad=false and
 accurate expf); the per-row KL and the huber mean rtol 1e-5, because the
 sums are taken in another order.  K3's gradients in bf16/f16 are held to
 one ulp of their type (both sides compute in f32 and round once).  K3 sums
-in a fixed order, so two calls on the same inputs are bit-equal.
+in a fixed order, so two calls on the same inputs are bit-equal.  K3w
+(``huber_rows_wsum``) alike, at the unroll cell's shapes (32,768 rows of
+5,660 and of 40) in f32 and bf16, and beside K3 on their shared
+workspace; one unroll step by both routes on the card.
 
 ``WorldModel``'s rollout step graphs on a model of the tag_wm widths
 (simple_tag 30/10/20, ``examples/world_model.yaml``, bf16), discrete and
@@ -139,6 +142,100 @@ def test_huber_mean_on_two_streams(dev):
     assert len(keys) == 2
 
 
+# K3w at the tag_unroll.train_w8 cell's shapes (W·B = 32,768 rows of the
+# state's 5,660 and the reward's 40 columns), at ragged and narrow rows
+WSUM_SHAPES = [(32768, 5660), (32768, 40), (1001, 26), (7, 3), (1, 1), (1, 5660), (T // 8 + 1, 8)]
+
+
+def _mask(dev, rows, seed):
+    return (torch.rand(rows, generator=torch.Generator(device=dev).manual_seed(seed), device=dev) < 0.7).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", WSUM_SHAPES, ids=str)
+def test_huber_rows_wsum(dev, shape, dtype):
+    rows, d = shape
+    x, y = (2 * _randn(dev, rows, d, seed=5)).to(dtype), _randn(dev, rows, d, seed=6).to(dtype)
+    w = _mask(dev, rows, 7)
+    profiling.reset_counters()
+    xg = x.clone().requires_grad_()
+    h = ops.huber_rows_wsum(xg, y, w, 1.0)
+    torch.testing.assert_close(h, ops._huber_rows_wsum_plain(x, y, w, 1.0), rtol=1e-5, atol=0.0)
+    assert torch.equal(ops.huber_rows_wsum(x, y, w, 1.0), h)  # a fixed sum order
+    assert profiling.counters() == {"k3w.launches": 2}
+    (dx,) = torch.autograd.grad(h, xg)
+    want = torch.clamp(x.float() - y.float(), -1.0, 1.0) * (w / d)[:, None]
+    assert dx.dtype == dtype
+    torch.testing.assert_close(dx, want.to(dtype), rtol=ULP.get(dtype, 1e-6), atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_huber_rows_wsum_misaligned_views(dev, dtype):
+    rows, d = 4096, 40
+    flat_x, flat_y = (2 * _randn(dev, rows * d + 1, seed=5)).to(dtype), _randn(dev, rows * d + 1, seed=6).to(dtype)
+    w = _mask(dev, rows, 8)
+    # one element in on both: a scalar head, then 16-byte packs straddling
+    # rows; on x only: every load scalar
+    for xv, yv in ((flat_x[1:], flat_y[1:]), (flat_x[1:], flat_y[:-1])):
+        xv, yv = xv.view(rows, d), yv.view(rows, d)
+        h = ops.huber_rows_wsum(xv, yv, w, 1.0)
+        torch.testing.assert_close(h, ops._huber_rows_wsum_plain(xv, yv, w, 1.0), rtol=1e-5, atol=0.0)
+        assert torch.equal(ops.huber_rows_wsum(xv, yv, w, 1.0), h)
+
+
+def test_huber_rows_wsum_and_k3_share_the_workspace(dev):
+    """K3 and K3w calls of several grid sizes back to back on one stream:
+    each call's last block must find the shared counter at 0."""
+    calls = []
+    for rows, d in ((T // 26 + 1, 26), (32768, 40), (4096, 5660), (3, 3), (32768, 40)):
+        x, y = 2 * _randn(dev, rows, d, seed=rows), _randn(dev, rows, d, seed=rows + 1)
+        w = _mask(dev, rows, rows + 2)
+        calls.append((ops.huber_rows_wsum(x, y, w, 1.0), ops._huber_rows_wsum_plain(x, y, w, 1.0)))
+        calls.append((ops.huber_mean(x, y, 1.0), ops._huber_mean_plain(x, y, 1.0)))
+    for h, want in calls:
+        torch.testing.assert_close(h, want, rtol=1e-5, atol=0.0)
+
+
+def test_unroll_step_routes_agree_on_the_card(dev):
+    """One unroll step (W = 3, episode ends inside the windows) by the
+    plain route and by the kernel route: K1/K2 in each window step, K3w on
+    both pooled branches, no K3."""
+    from mfvae_tpu_torch.data.transitions import GroupedTransition
+    from mfvae_tpu_torch.training.unroll import make_unroll_train_step
+
+    agents = ("adversary_0", "adversary_1", "agent_0")
+    spec = AgentSpec.from_dicts(agents, {"adversary_0": 10, "adversary_1": 10, "agent_0": 6}, {a: 5 for a in agents})
+    cfg = ModelConfig(idx_features=8, obs_features=8, action_features=8, encoder_hidden=(16,),
+                      decoder_hidden=(32,), compute_dtype="float32", residual_state=True, state_skip=True)
+    b, w = 16, 3
+    g = torch.Generator(device=dev).manual_seed(0)
+    done = torch.zeros(b, w, device=dev)
+    done[0, 0] = done[3, 1] = 1.0
+    windows = GroupedTransition(
+        obs=(torch.randn(b, w, 2, 10, generator=g, device=dev), torch.randn(b, w, 1, 6, generator=g, device=dev)),
+        actions=(torch.randint(0, 5, (b, w, 2), generator=g, device=dev),
+                 torch.randint(0, 5, (b, w, 1), generator=g, device=dev)),
+        next_obs=(torch.randn(b, w, 2, 10, generator=g, device=dev), torch.randn(b, w, 1, 6, generator=g, device=dev)),
+        rewards=torch.randn(b, w, 3, generator=g, device=dev), done=done,
+    )
+    eps = torch.randn(w, b, 3, 8, generator=g, device=dev)
+    init = MAVAE.from_config(cfg, spec, device=dev, generator=torch.Generator(device=dev).manual_seed(1)).state_dict()
+    results = []
+    for use_pallas in (False, True):
+        model = MAVAE.from_config(cfg, spec, device=dev)
+        model.load_state_dict(init)
+        state = create_train_state(model, TrainConfig(grad_clip=0.5))
+        profiling.reset_counters()
+        state, out = make_unroll_train_step(spec, LossConfig(), w, use_pallas=use_pallas)(state, windows, eps=eps)
+        results.append((out, state.model.state_dict(), profiling.counters()))
+    (o1, p1, l1), (o2, p2, l2) = results
+    assert l1 == {} and l2 == {"k1.launches": w, "k2.launches": w, "k3w.launches": 2}
+    for a, b_ in zip(o1, o2):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6)
+    for name in p1:
+        torch.testing.assert_close(p1[name], p2[name], rtol=1e-4, atol=1e-5)
+
+
 def test_wrappers_refuse_on_the_card(dev):
     x = torch.zeros(4, 8, device=dev)
     with pytest.raises(TypeError):
@@ -209,6 +306,28 @@ def test_kernel_spans_cover_their_kernels_under_a_profiler(dev):
         assert len(ranges) == len(mine) == host.count(f"mfvae.{k}"), k
         for r in ranges:
             assert sum(r.start <= m.start and m.end <= r.end for m in mine) == 1, k
+
+
+def test_k3w_span_covers_its_kernel_under_a_profiler(dev):
+    """K3w's span: one host event a launch, whose device-side range holds
+    its one kernel; no kernel of K3's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y, w = _randn(dev, 256, 5660, seed=3), _randn(dev, 256, 5660, seed=4), _mask(dev, 256, 5)
+    ops.huber_rows_wsum(x, y, w)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.huber_rows_wsum(x, y, w)
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    assert [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA].count("mfvae.k3w") == 3
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = [e.time_range for e in on_device if e.name == "mfvae.k3w"]
+    mine = [e.time_range for e in on_device if "huber_rows_wsum_kernel" in e.name]
+    assert len(ranges) == len(mine) == 3
+    assert not [e for e in on_device if "huber_mean_kernel" in e.name]
+    for r in ranges:
+        assert sum(r.start <= m.start and m.end <= r.end for m in mine) == 1
 
 
 def test_host_backend_launches_no_kernel_on_the_card(dev, tmp_path):

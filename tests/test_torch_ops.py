@@ -8,7 +8,11 @@ bfloat16 and float16 inputs hold exactly representable values on both
 sides.  Both compute in f32 (values f32, held at the f32 tolerance) and
 round each gradient once to its input's type, so a gradient may differ by
 one ulp of that type: rtol 2^-7 for bf16, 2^-10 for f16, with the f32
-atol."""
+atol.
+
+K3w (``huber_rows_wsum``, the unroll step's masked pools) has no JAX
+counterpart: its plain version is held to a float64 weighted sum at rtol
+1e-6, and its gradient to ``w_r/D·clamp(x - y, -δ, δ)``."""
 
 import math
 
@@ -231,7 +235,8 @@ def test_cpu_path_launches_nothing():
     profiling.reset_counters()
     x = torch.ones(2, 3, 64, requires_grad=True)
     z, kl = ops.fused_reparam_kl(x, x, x)
-    (z.sum() + kl.sum() + ops.huber_mean(x, 2 * x)).backward()
+    w = torch.ones(2 * 3)
+    (z.sum() + kl.sum() + ops.huber_mean(x, 2 * x) + ops.huber_rows_wsum(x.reshape(6, 64), x.reshape(6, 64), w)).backward()
     assert profiling.counters() == {}
 
 
@@ -246,3 +251,91 @@ def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
         kernel_build.build(ops.SOURCE)
     with pytest.raises(kernel_build.KernelBuildError, match="missing"):
         kernel_build.build("no_such_source.cu")
+
+
+# ------------------------------------------------------------------ K3w
+def huber_rows_wsum64(x, y, w, delta):
+    """Σ_r w_r · mean_d huber(x_rd - y_rd), in float64."""
+    a = torch.abs(x.double() - y.double())
+    q = torch.clamp(a, max=delta)
+    return float(torch.sum(torch.mean(0.5 * q * q + delta * (a - q), dim=-1) * w.double()))
+
+
+WSUM_CASES = {  # name -> (rows, d, delta, weights)
+    "mask": (37, 26, 1.0, "mask"),
+    "weights": (64, 40, 0.5, "weights"),
+    "all_zero": (16, 26, 1.0, "zero"),
+    "one_row": (1, 26, 1.0, "weights"),
+    "one_column": (50, 1, 1.0, "mask"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WSUM_CASES))
+def test_huber_rows_wsum_matches_float64(name):
+    rows, d, delta, kind = WSUM_CASES[name]
+    g = torch.Generator().manual_seed(2)
+    x, y = 2 * torch.randn(rows, d, generator=g), torch.randn(rows, d, generator=g)
+    w = {"mask": (torch.rand(rows, generator=g) < 0.7).float(), "weights": 3 * torch.rand(rows, generator=g),
+         "zero": torch.zeros(rows)}[kind]
+    xg = x.clone().requires_grad_()
+    v = ops.huber_rows_wsum(xg, y, w, delta)
+    assert v.dtype == torch.float32 and v.dim() == 0
+    want = huber_rows_wsum64(x, y, w, delta)
+    assert abs(float(v.detach()) - want) <= 1e-6 * abs(want)  # all-zero weights: exactly 0
+    (dx,) = torch.autograd.grad(v, xg)
+    torch.testing.assert_close(dx, torch.clamp(x - y, -delta, delta) * (w / d)[:, None], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+def test_huber_rows_wsum_low_precision(name):
+    dtype, _, ulp = TYPES[name]
+    g = torch.Generator().manual_seed(3)
+    x, y = (2 * torch.randn(9, 40, generator=g)).to(dtype), torch.randn(9, 40, generator=g).to(dtype)
+    w = (torch.rand(9, generator=g) < 0.5).float()
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+    v = ops.huber_rows_wsum(xg, yg, w, 1.0)
+    want = huber_rows_wsum64(x, y, w, 1.0)
+    assert abs(float(v.detach()) - want) <= 1e-6 * abs(want)
+    dx, dy = torch.autograd.grad(v, (xg, yg))
+    assert dx.dtype == dy.dtype == dtype
+    grad = torch.clamp(x.float() - y.float(), -1.0, 1.0) * (w / 40)[:, None]
+    torch.testing.assert_close(dx, grad.to(dtype), rtol=ulp, atol=1e-12)
+    torch.testing.assert_close(dy, (-grad).to(dtype), rtol=ulp, atol=1e-12)
+
+
+def test_huber_rows_wsum_is_the_weighted_huber_mean():
+    """Weights 1 over R rows give R times K3's mean; a weight per row is
+    the rows' huber means so weighted (the unroll's masked pool)."""
+    g = torch.Generator().manual_seed(4)
+    x, y = torch.randn(12, 26, generator=g), torch.randn(12, 26, generator=g)
+    torch.testing.assert_close(ops.huber_rows_wsum(x, y, torch.ones(12)), 12 * ops.huber_mean(x, y), rtol=1e-6,
+                               atol=0.0)
+    w = torch.zeros(12)
+    w[3] = 2.0
+    torch.testing.assert_close(ops.huber_rows_wsum(x, y, w), 2 * ops.huber_mean(x[3], y[3]), rtol=1e-6, atol=0.0)
+
+
+def test_huber_rows_wsum_refuses_bad_inputs():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        ops.huber_rows_wsum(x, x, torch.zeros(3))  # a weight per row
+    with pytest.raises(ValueError):
+        ops.huber_rows_wsum(x.reshape(-1), x.reshape(-1), torch.zeros(32))  # rows [R, D]
+    with pytest.raises(TypeError):
+        ops.huber_rows_wsum(x, x, torch.zeros(4, dtype=torch.float64))  # f32 weights
+    with pytest.raises(TypeError):
+        ops.huber_rows_wsum(x.double(), x.double(), torch.zeros(4))
+    with pytest.raises(ValueError):
+        ops.huber_rows_wsum(torch.zeros(0, 8), torch.zeros(0, 8), torch.zeros(0))
+
+
+@pytest.mark.parametrize("rows,d,itemsize", [(32768, 5660, 4), (32768, 5660, 2), (32768, 40, 4), (32768, 40, 2),
+                                             (100, 3, 4), (7, 5, 2), (1, 26, 4)])
+def test_huber_geometry_of_k3w_rows(rows, d, itemsize):
+    """K3w takes K3's geometry, with 16-byte loads only where a pack spans
+    at most two rows."""
+    pack = 16 // itemsize
+    geo = ops.huber_geometry(0, 0, rows * d, itemsize, WAVE, row=d)
+    n = rows * d
+    assert geo.vec == (pack if d >= pack and n >= pack else 1) and geo.head == 0
+    assert geo.blocks == ops.huber_geometry(0, 0 if d >= pack else 1, n, itemsize, WAVE).blocks

@@ -1,7 +1,10 @@
 """The port's spans and counters (``utils/profiling.py``) on the CPU: off
 without a profiler, and, under ``torch.profiler``, one span a phase, a
 train step's part or a rollout step where the program says so.  The
-spans around K1-K3's launches are in ``tests/test_torch_cuda.py``."""
+spans around K1-K3w's launches are in ``tests/test_torch_cuda.py``; here
+the kernels' plain versions stand in for them, each under its span and
+counter, to show what an unroll step on the kernel route launches: W
+window steps, each with K1 and K2, and two K3w on the pooled terms."""
 
 from pathlib import Path
 
@@ -12,6 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 from mfvae_tpu_torch.config import load_config
 from mfvae_tpu_torch.inference import WorldModel
 from mfvae_tpu_torch.models.mavae import GroupedBatch
+from mfvae_tpu_torch.ops import fused_elbo as ops
 from mfvae_tpu_torch.training.experiment import Experiment
 from mfvae_tpu_torch.training.trainer import make_phase_fns
 from mfvae_tpu_torch.utils import profiling
@@ -104,6 +108,42 @@ def test_train_phase_spans_each_step(tmp_path, overrides):
         assert b[1] <= u[0]  # the update starts after the backward ends
     order = [s[2][len("mfvae."):] for s in spans if s[2][len("mfvae."):] in TRAIN_SPANS]
     assert order == list(TRAIN_SPANS) * steps
+
+
+def _plain_versions_as_launches(monkeypatch):
+    """Each kernel's plain version under its span and launch counter, as
+    its launch on the card is."""
+    for name, key in (("_fwd_rows_plain", "k1"), ("_bwd_rows_plain", "k2"), ("_huber_mean_plain", "k3"),
+                      ("_huber_rows_wsum_plain", "k3w")):
+        def launch(*args, _real=getattr(ops, name), _key=key, **kwargs):
+            with profiling.span(_key):
+                profiling.count(f"{_key}.launches")
+                return _real(*args, **kwargs)
+
+        monkeypatch.setattr(ops, name, launch)
+
+
+def test_an_unroll_step_on_the_kernel_route_spans_each_window_step(tmp_path, monkeypatch):
+    w = 3
+    cfg = _tag_wm_small(tmp_path, f"train.unroll_steps={w}", "train.train_num=1")
+    exp = Experiment(cfg, device="cpu").build()
+    collect, train_phase, _ = make_phase_fns(exp.env, exp.spec, exp.buffer, exp.test_buffer, cfg, exp.streams)
+    _, buf = collect(exp.carry.env, exp.carry.buffer_state, exp.buffer)
+    _plain_versions_as_launches(monkeypatch)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_phase(exp.carry.train_state, buf)
+    assert profiling.counters() == {"k1.launches": w, "k2.launches": w, "k3w.launches": 2}
+    spans = _spans(prof)
+    named = lambda n: [s for s in spans if s[2] == f"mfvae.{n}"]  # noqa: E731
+    (forward,), (loss,) = named("train.forward"), named("train.loss")
+    steps = named("train.unroll.step")
+    assert len(steps) == w and all(_inside(s, forward) for s in steps)
+    assert all(a[1] <= b[0] for a, b in zip(steps, steps[1:]))  # one after another
+    assert [sum(_inside(k, s) for k in named("k1")) for s in steps] == [1] * w  # K1 in each step's fused_call
+    assert len(named("k2")) == w and not named("k3")
+    k3w = named("k3w")
+    assert len(k3w) == 2 and all(_inside(s, loss) for s in k3w)
 
 
 def test_collect_and_test_phase_are_spans(tmp_path):

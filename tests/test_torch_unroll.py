@@ -15,7 +15,21 @@
   decoder LayerNorm, unfused decoders).  Losses within rtol 1e-5,
   gradients within rtol 1e-4 / atol 1e-6.
 - W = 1 is the one-step ELBO (loss and gradients, rtol 1e-6).
-- The POPART and ``use_pallas`` guards raise NotImplementedError, as in JAX.
+- The POPART guard raises NotImplementedError in both packages; the
+  ``use_pallas`` guard in JAX only, because the port runs the kernel route.
+- The kernel route (``use_pallas``: ``fused_call``'s K1/K2 and K3w, their
+  plain versions on the CPU) against the plain route, at f32 from one
+  state: losses within rtol 1e-6, each leaf's gradient within 1e-6 of its
+  norm, parameters after one clipped Adam step within rtol 1e-6 / atol
+  1e-5 (the atol of the Adam step against JAX below).  K1/K2's plain
+  versions round otherwise than autograd of the plain route (``std·std``
+  for ``exp(logvar)``, the KL summed over F first), so a gradient element
+  that cancels to near 0 differs by a few ulps of its leaf: the gradients
+  are held by their norm.  Adam's first step moves each element by about
+  lr·sign(g), so such an element moves by a share of lr (1e-3) that the
+  ulps decide; a wrong gradient moves it by about lr.  Windows with episode ends,
+  ``stop_gradient`` on and off, ``mean_feedback`` on and off, and the
+  shared latent.
 - One unroll Adam step (with the global-norm clip) against JAX's
   parameters: rtol 1e-4 / atol 1e-5, the one-step tolerance of
   tests/test_torch_trainer.py.
@@ -24,6 +38,7 @@ Parameters from the JAX ``init`` through ``params_from_jax``; inputs from
 numpy seeds; float32 on both sides, JAX matmul precision "highest".
 """
 
+import copy
 from typing import NamedTuple
 
 import jax
@@ -258,8 +273,58 @@ def test_popart_and_pallas_refused_as_in_jax():
     for kw in (dict(mode="POPART"), dict(use_pallas=True)):
         with pytest.raises(NotImplementedError):
             j_make_unroll_train_step(jspec, JLossConfig(), 4, **kw)
-        with pytest.raises(NotImplementedError):
-            make_unroll_train_step(tspec, LossConfig(), 4, **kw)
+    with pytest.raises(NotImplementedError):
+        make_unroll_train_step(tspec, LossConfig(), 4, mode="POPART")
+    make_unroll_train_step(tspec, LossConfig(), 4, use_pallas=True)  # the port's widening
+    with pytest.raises(ValueError, match="use_pallas"):  # the kernel route keeps the one-step guards
+        make_unroll_train_step(tspec, LossConfig(free_bits=0.1), 4, use_pallas=True)
+
+
+# --------------------------------------------------- the kernel route
+ROUTE_CASES = {  # name -> (loss-fn options, latent structure)
+    "bptt": ({}, "private"),
+    "stop_gradient": (dict(stop_gradient=True), "private"),
+    "mean_feedback": (dict(mean_feedback=True), "private"),
+    "shared_latent": ({}, "shared_private"),
+    "shared_latent_mean_feedback_stop_gradient": (dict(mean_feedback=True, stop_gradient=True), "shared_private"),
+}
+
+
+def _route_inputs(latent: str, seed: int = 11):
+    """A torch-only model from a seeded init and windows with episode ends
+    inside them (``DONE``), with the per-step eps of both latents."""
+    tspec = AgentSpec.from_dicts(AGENTS, OBS, {a: 5 for a in AGENTS})
+    torch.manual_seed(seed)
+    model = MAVAE.from_config(ModelConfig(**SMALL, latent_structure=latent), tspec, device="cpu")
+    _, tw = windows(JSpec.from_dicts(AGENTS, OBS, {a: 5 for a in AGENTS}), seed, DONE)
+    g = torch.Generator().manual_seed(seed)
+    eps = torch.randn(W, B, 3, F, generator=g)
+    eps_s = torch.randn(W, B, model.shared_latent, generator=g) if model.shared else None
+    return tspec, model, tw, eps, eps_s
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_CASES))
+def test_kernel_route_equals_the_plain_route(name):
+    kw, latent = ROUTE_CASES[name]
+    tspec, model, tw, eps, eps_s = _route_inputs(latent)
+    cfg = LossConfig(s_weight=3.0)
+    got = {}
+    for pallas in (False, True):
+        m = copy.deepcopy(model)
+        out = make_unroll_loss_fn(tspec, cfg, W, use_pallas=pallas, **kw)(m, tw, eps=eps, eps_shared=eps_s)
+        out.loss.backward()
+        state = create_train_state(copy.deepcopy(model), TrainConfig(grad_clip=0.5))
+        state, _ = make_unroll_train_step(tspec, cfg, W, use_pallas=pallas, **kw)(state, tw, eps=eps,
+                                                                                  eps_shared=eps_s)
+        got[pallas] = ([x.detach() for x in out], {n: p.grad for n, p in m.named_parameters()},
+                       state.model.state_dict())
+    (plain_l, plain_g, plain_p), (k_l, k_g, k_p) = got[False], got[True]
+    for field, a, b in zip(("loss", "s_loss", "r_loss", "kl_loss"), k_l, plain_l):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0, msg=field)
+    for n, g in plain_g.items():
+        assert float(torch.linalg.vector_norm(k_g[n] - g)) <= 1e-6 * float(torch.linalg.vector_norm(g)), n
+    for n, p in plain_p.items():
+        torch.testing.assert_close(k_p[n], p, rtol=1e-6, atol=1e-5, msg=n)
 
 
 def test_one_unroll_adam_step_matches_jax():
