@@ -7,7 +7,8 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
 
 1. Device: a CUDA card must be present; prints the card's name and power
    limit (nvidia-smi) and turns TF32 off for matmul and cuDNN.
-2. Build: compiles ops/csrc/fused_elbo.cu for sm_90a (cached by content).
+2. Build: compiles ops/csrc/fused_elbo.cu and ops/csrc/lookup_grad.cu for
+   sm_90a (cached by content).
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes and at ragged ones, with times (CUDA events, median of
    30 loops of 20 back-to-back calls queued behind a device sleep, so host
@@ -17,12 +18,20 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    single-block threshold +-1; each case twice, bit-equal.  torch.profiler
    must show exactly one device kernel per K3 call at both branches' n.
    A sweep times K3 on one block against its multi-block grid, for the
-   threshold's crossover.
+   threshold's crossover.  K4 (the embedding lookups' backward) at the
+   b4,096 lookups' shapes, [4,096, 30, 64] and [4,096, 10, 64] bf16, fixed
+   positions in a 40-row table and 5 action bins: against its plain
+   version (within 2^-19 of the magnitudes summed), twice bit-equal, timed
+   as K1-K3 beside the library call it replaces (the cast to f32 and
+   index_put_(accumulate=True)).
 4. The main path with the kernels: the default ExperimentConfig (simple_tag
    30 adversaries + 10 good agents + 20 obstacles, batch 128, bf16,
    full widths) with model.use_pallas=true for 2 epochs, through
    Experiment(...).setup().run(); the launch counts must be K1 = K2 =
-   train_num per epoch and K3 = 2 * train_num per epoch.
+   train_num per epoch and K3 = 2 * train_num per epoch; K4 runs in each
+   forward's backward of a use_pallas model, once a group for the
+   agent-index embedding and once a group for discrete actions of at most
+   8 (k4_per_step: 4 a step on simple_tag).
 5. The same config on plain ops (use_pallas=false) for 1 epoch; no kernel
    may launch.
 6. One train step by both routes from the same state, batch and generator
@@ -178,8 +187,8 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    (tests/test_torch_cuda.py's route tolerance) and each leaf's gradient
    within 1e-5 of its norm (tests/test_torch_unroll.py holds it at 1e-6 on
    the CPU), at the recipe's bf16 the losses within rtol 1e-4 (phase 6's);
-   the kernel route launches K1 = K2 = 8, K3w = 2 and no K3, the plain
-   route nothing; each route's step timed (CUDA events, median of 5).  K3w against its plain version at the
+   the kernel route launches K1 = K2 = 8, K3w = 2, K4 = 32 and no K3, the
+   plain route (its model without use_pallas) nothing; each route's step timed (CUDA events, median of 5).  K3w against its plain version at the
    tag_unroll.train_w8 cell's shapes (32,768 rows of 5,660 and of 40, f32;
    rtol 1e-5, twice bit-equal), timed as in phase 3 beside its bytes bound.
 24. Scale-out at full width (simple_tag 30/10/20, 40 agents), printed
@@ -215,7 +224,8 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    id 39 - i from its data): fused_call's forward on the card against the
    CPU's (recon_state within 2^-7 of its largest, the losses within rtol
    2^-7, the model's bf16 tolerance), and unlike the positional forward.
-   Launches K1 = 5, K2 = 3, K3 = 10.
+   Launches K1 = 5, K2 = 3, K3 = 10, K4 = 12 (the actions' lookups in both
+   routes' steps; the ids from the data keep the agent-index gather).
 26. The measurement entry points (mfvae_tpu_torch/bench/) at full width,
    printed beside the card's name and power limit.  (a) python -m
    mfvae_tpu_torch.bench's run, each row a few steps: every key of
@@ -235,9 +245,9 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    bit-equal.  (f) K1-K3 at the b4096 shapes ([163,840, 64] latents, the
    state and reward branches of K3): each held against its plain version
    on the same tensors with phase 3's gates, then timed as in phase 3.
-27. The kernel list as one JSON line (K1-K3, and K3w at phase 23's state
-   shape), the card, and the result line.  Every phase's launch counts
-   cover K1-K3w.
+27. The kernel list as one JSON line (K1-K3, K3w at phase 23's state
+   shape, K4 at phase 3's shapes), the card, and the result line.  Every
+   phase's launch counts cover K1-K4.
 
 Phases 4-22 and 24-26 print their epoch walls, launches and losses.
 """
@@ -266,18 +276,33 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-# K1-K3w's launch counters (mfvae_tpu_torch/utils/profiling.py) and the kernel each counts
+# K1-K4's launch counters (mfvae_tpu_torch/utils/profiling.py) and the kernel each counts
 KERNEL_COUNTERS = {"k1.launches": "reparam_kl_fwd_kernel", "k2.launches": "reparam_kl_bwd_kernel",
-                   "k3.launches": "huber_mean_kernel", "k3w.launches": "huber_rows_wsum_kernel"}
+                   "k3.launches": "huber_mean_kernel", "k3w.launches": "huber_rows_wsum_kernel",
+                   "k4.launches": "lookup_grad_kernel"}
 
 
 def launch_counts() -> dict:
-    """K1-K3w's launch counters since the last ``reset_counters``, 0 where
+    """K1-K4's launch counters since the last ``reset_counters``, 0 where
     a kernel has not launched."""
     from mfvae_tpu_torch.utils import profiling
 
     counted = profiling.counters()
     return {k: counted.get(k, 0) for k in KERNEL_COUNTERS}
+
+
+def k4_per_step(spec, model_cfg) -> int:
+    """K4's launches in the backward of one forward of a model built with
+    ``model.use_pallas`` and no ids from the data: the agent-index
+    embedding's once a group, and the action embeddings' once a group
+    whose discrete actions fit K4's bins (the routing of models/layers.py)."""
+    from mfvae_tpu_torch.models.mavae import DTYPES
+    from mfvae_tpu_torch.ops import lookup_grad
+
+    dtype = DTYPES[model_cfg.compute_dtype]
+    fixed = lookup_grad.supports(model_cfg.idx_features, 1, dtype)
+    bins = sum(lookup_grad.supports(model_cfg.action_features, ad, dtype) for (_, ad), _ in spec.groups)
+    return len(spec.groups) * fixed + (bins if model_cfg.discrete_act else 0)
 
 
 def _to(x, dev):
@@ -1082,7 +1107,7 @@ def vae_phase(tmp: str, dev) -> dict:
 
 
 def _trace_kernel_counts(trace_dir: Path) -> dict:
-    """Device kernels named like K1-K3w in the one torch.profiler trace
+    """Device kernels named like K1-K4 in the one torch.profiler trace
     under ``trace_dir`` (the Chrome trace's "kernel" events)."""
     files = list(trace_dir.glob("*.pt.trace.json"))
     check(len(files) == 1, f"expected one trace file under {trace_dir}, found {[f.name for f in files]}")
@@ -1117,7 +1142,7 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
     t_phase = time.perf_counter()
     print(f"[22] card: {smi}", flush=True)
     out, launches = {}, {}
-    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20, "k3w.launches": 0}
+    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20, "k3w.launches": 0, "k4.launches": 40}
 
     def full_width(cfg):
         check((cfg.env.name, cfg.env.num_adversaries, cfg.env.num_good_agents, cfg.env.num_obs)
@@ -1229,8 +1254,9 @@ def tooling_phase(drive, both_routes, examples: Path, tmp: str, dev, smi: str) -
               f"{peaks[True]:.3f} MiB with remat, {peaks[False]:.3f} MiB without")
         check(ok, f"remat changed the gradients of one train step ({label} decoders)")
     launches["tooling: remat, 4 train steps"] = launch_counts()
-    check(launches["tooling: remat, 4 train steps"] == {k: 4 * v // 10 for k, v in want1.items()},
-          "remat: the 4 train steps with use_pallas did not launch K1-K3 4/4/8 times")
+    # the models' own model.use_pallas is off (the recipe's default): no K4
+    check(launches["tooling: remat, 4 train steps"] == {k: 4 * v // 10 for k, v in want1.items()} | {"k4.launches": 0},
+          "remat: the 4 train steps with use_pallas did not launch K1-K3 4/4/8 times and K4 none")
     del exp, models, batch
 
     # ---------------------------------------------------- rng_mode=reference
@@ -1608,7 +1634,7 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     w1, plain = runs["world 1 (NCCL)"], runs["unsharded"]
-    want2 = {"k1.launches": 20, "k2.launches": 20, "k3.launches": 40, "k3w.launches": 0}
+    want2 = {"k1.launches": 20, "k2.launches": 20, "k3.launches": 40, "k3w.launches": 0, "k4.launches": 80}
     check(w1["launches"] == want2 and plain["launches"] == want2,
           f"data_parallel.yaml launches {w1['launches']}, {plain['launches']}, expected {want2}")
     check(w1["losses"] == plain["losses"] and w1["steps"] == plain["steps"],
@@ -1646,7 +1672,7 @@ def scaleout_phase(examples: Path, tmp: str, dev, smi: str) -> dict:
     ranks = [json.load(open(f"{rank_dir}/rank{r}.json")) for r in range(2)]
     out["ranks_wall_s"] = time.perf_counter() - t_ranks
 
-    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20, "k3w.launches": 0}
+    want1 = {"k1.launches": 10, "k2.launches": 10, "k3.launches": 20, "k3w.launches": 0, "k4.launches": 40}
     gaps = {}
     for r, res in enumerate(ranks):
         dp, tpe = res["dp"], res["tp"]
@@ -1855,9 +1881,14 @@ def reference_dicts_phase(dev) -> dict:
 
     torch.cuda.synchronize()
     launches = launch_counts()
+    # K4: the action embeddings' backward in both routes' steps (the model's
+    # use_pallas); the ids come from the data, so the agent-index
+    # embedding keeps the gather
     want = {"k1.launches": REFERENCE_STEPS + 2, "k2.launches": REFERENCE_STEPS,
-            "k3.launches": 2 * REFERENCE_STEPS + 4, "k3w.launches": 0}
-    print(f"[25] launches {launches} (the kernel route's {REFERENCE_STEPS} steps and 2 forwards)", flush=True)
+            "k3.launches": 2 * REFERENCE_STEPS + 4, "k3w.launches": 0,
+            "k4.launches": 2 * REFERENCE_STEPS * len(spec.groups)}
+    print(f"[25] launches {launches} (the kernel route's {REFERENCE_STEPS} steps and 2 forwards; K4 in both "
+          f"routes' steps)", flush=True)
     check(launches == want, f"phase 25: launch counts {launches}, expected {want}")
     out["launches"] = {"reference dicts: Adam steps + permuted ids": launches}
     out["phase_wall_s"] = time.perf_counter() - t_phase
@@ -1899,11 +1930,14 @@ def unroll_routes_phase(exp, dev, median_ms, bound) -> dict:
     eps = torch.randn(w, UNROLL_B, spec.n_agents, cfg.model.obs_features, generator=g, device=dev)
     trained = exp.carry.train_state.model.state_dict()
     out = {"windows": UNROLL_B, "unroll_steps": w}
+    k4 = k4_per_step(spec, cfg.model)
     for dtype in ("float32", "bfloat16"):
-        model = MAVAE.from_config(dataclasses.replace(cfg.model, compute_dtype=dtype), spec, device=dev)
-        model.load_state_dict(trained)
         res = {}
         for use_pallas in (False, True):
+            # the plain route on a model without the layers' kernel (K4)
+            model = MAVAE.from_config(dataclasses.replace(cfg.model, compute_dtype=dtype, use_pallas=use_pallas),
+                                      spec, device=dev)
+            model.load_state_dict(trained)
             opts = dict(use_pallas=use_pallas, stop_gradient=cfg.train.unroll_stop_gradient,
                         mean_feedback=cfg.train.unroll_mean_feedback)
             m = copy.deepcopy(model)
@@ -1927,7 +1961,7 @@ def unroll_routes_phase(exp, dev, median_ms, bound) -> dict:
                 times.append(start.elapsed_time(end))
             out[f"{dtype}_{'kernels' if use_pallas else 'plain'}_step_ms"] = statistics.median(times)
         (lp, pp, cp), (lk, pk, ck) = res[False], res[True]
-        check(cp == {} and ck == {"k1.launches": w, "k2.launches": w, "k3w.launches": 2},
+        check(cp == {} and ck == {"k1.launches": w, "k2.launches": w, "k3w.launches": 2, "k4.launches": k4 * w},
               f"phase 23 {dtype}: launches plain {cp}, kernels {ck}")
         rel = [abs(a - b) / abs(a) for a, b in zip(lp, lk)]
         out[f"{dtype}_loss_rel_gaps"] = rel
@@ -2084,7 +2118,10 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     n = kernel_steps + 1
-    want = {"k1.launches": n, "k2.launches": n, "k3.launches": 2 * n, "k3w.launches": 0}
+    # K4 in the kernel-route rows' steps (their models' use_pallas), not in
+    # the b4096 routes' model
+    want = {"k1.launches": n, "k2.launches": n, "k3.launches": 2 * n, "k3w.launches": 0,
+            "k4.launches": kernel_steps * k4_per_step(flagship.flagship_spec(), ModelConfig())}
     print(f"[26] launches {launches}: the kernel-route rows' {kernel_steps} steps and the b4096 step", flush=True)
     check(launches == want, f"phase 26: launch counts {launches}, expected {want}")
     out["launches"] = {"bench: entry points + det128 b4096 routes": launches}
@@ -2172,6 +2209,7 @@ def main() -> None:
         from mfvae_tpu_torch.inference import WorldModel
         from mfvae_tpu_torch.models.mavae import GroupedBatch
         from mfvae_tpu_torch.ops import fused_elbo as ops
+        from mfvae_tpu_torch.ops import lookup_grad as lg
         from mfvae_tpu_torch.planning import CEMNoise, EnvDynamicsModel, eval_joint_policy, make_cem_actor, make_mpc_actor
         from mfvae_tpu_torch.rollout_eval import rollout_accuracy
         from mfvae_tpu_torch.training.experiment import Experiment, build_spec
@@ -2199,6 +2237,10 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = kernel_build.build(ops.SOURCE)
     ops._lib()
+    print(f"[2] built {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    lib = kernel_build.build(lg.SOURCE)
+    lg._lib()
     print(f"[2] built {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---------------------------------------------------- 3. kernels vs plain
@@ -2358,6 +2400,41 @@ def main() -> None:
         print(f"[3] K3 crossover n={n}: one block {1e3 * one:.2f} us, {blocks} blocks {1e3 * many:.2f} us")
     print(f"[3] K3 single-block threshold n <= {thr}")
     print(json.dumps({"launch_floor_ms": floor_ms, "k3_paths": k3_paths, "k3_crossover": crossover}))
+    # K4 at the b4,096 lookups' shapes (tag_wm's adversaries and good
+    # agents: bf16 gradients [4,096, 30 | 10, 64], positions in a 40-row
+    # table, actions in 5 bins), each mode against its plain version (each
+    # element within 2^-19 of the sum of the magnitudes it adds: both f32
+    # sums within 2^-20 of the exact one), twice bit-equal, then timed
+    # beside the library call it replaces: the gradient's cast to f32 and
+    # index_put_(accumulate=True) into a zeroed table, advanced indexing's
+    # backward
+    for first, cols in ((0, 30), (30, 10)):
+        gk = randn(4096, cols, 64).to(torch.bfloat16)
+        idx = torch.randint(0, 5, (4096, cols), generator=g, device=dev, dtype=torch.int32)
+        pos = torch.arange(first, first + cols, device=dev)
+        stack = torch.arange(cols, device=dev)
+        for mode, kw, rows, index, nbytes in (
+            ("fixed", dict(pos=pos), 40, (pos[None, :].expand(4096, -1),), 8 * cols + 4 * 40 * 64),
+            ("bins", dict(idx=idx, bins=5), 5 * cols, (stack[None, :], idx.long()), 4 * idx.numel() + 4 * 5 * cols * 64),
+        ):
+            got = lg.lookup_grad(gk, rows, **kw)
+            same = bool(torch.equal(lg.lookup_grad(gk, rows, **kw), got))
+            want = lg._lookup_grad_plain(gk, rows, **kw)
+            mag = lg._lookup_grad_plain(gk.abs(), rows, **kw)
+            err = float(((got - want).abs() / mag.clamp_min(1e-30)).max())
+            label = f"{mode} [4096, {cols}, 64] bf16"
+            print(f"[3] K4 {label}: max |kernel - plain| over the magnitudes summed {err:.3e} (2^-19); "
+                  f"second call bit-equal {same}")
+            check(err <= 2.0**-19 and same, f"K4 {label}: disagrees with its plain version or gave two results")
+            shape = (40, 64) if mode == "fixed" else (cols, 5, 64)
+            kernels[f"K4 {label}"] = dict(
+                max_rel_err=err,
+                ms=median_ms(lambda: lg._lookup_grad_cuda(gk, rows, **kw)),
+                plain_ms=median_ms(lambda: lg._lookup_grad_plain(gk, rows, **kw)),
+                library_ms=median_ms(lambda: torch.zeros(shape, device=dev).index_put_(
+                    index, gk.float(), accumulate=True)),
+                bytes=2 * gk.numel() + nbytes, ops=gk.numel(),
+            )
     torch.cuda.synchronize()
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
@@ -2388,10 +2465,12 @@ def main() -> None:
               f"{label}: non-finite losses")
         if use_pallas:
             # an unroll step: K1/K2 in each of its W window steps, K3w on its two
-            # pooled branches and no K3; a one-step step: K1, K2 and two K3
+            # pooled branches and no K3; a one-step step: K1, K2 and two K3;
+            # K4 in each forward's backward
             tn, w = cfg.train.train_num, cfg.train.unroll_steps
             want = {"k1.launches": epochs * tn * w, "k2.launches": epochs * tn * w,
-                    "k3.launches": 0 if w > 1 else 2 * epochs * tn, "k3w.launches": 2 * epochs * tn if w > 1 else 0}
+                    "k3.launches": 0 if w > 1 else 2 * epochs * tn, "k3w.launches": 2 * epochs * tn if w > 1 else 0,
+                    "k4.launches": epochs * tn * w * k4_per_step(exp.spec, cfg.model)}
             check(launches == want, f"{label}: launch counts {launches}, expected {want}")
         else:
             check(not any(launches.values()), f"{label}: the plain route launched kernels: {launches}")
@@ -2841,6 +2920,18 @@ def main() -> None:
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "launches_by_path": {path: n["k3w.launches"] for path, n in path_launches.items()},
         "at_unroll_cell": unroll_out["k3w"],
+    })
+    # K4, at tag_wm's b4,096 adversary lookup (phase 3); the JAX package
+    # leaves its lookups to XLA
+    k4_rows = {name.removeprefix("K4 "): k for name, k in kernels.items() if name.startswith("K4 ")}
+    k = k4_rows["fixed [4096, 30, 64] bf16"]
+    line.append({
+        "name": "K4 lookup_grad", "ok": True, "route": "cuda", "source": "mfvae_tpu_torch/ops/csrc/lookup_grad.cu",
+        "replaces": None, "launches": main_launches["k4.launches"], "max_rel_err": k["max_rel_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"],
+        "launches_by_path": {path: n["k4.launches"] for path, n in path_launches.items()},
+        "at_b4096": k4_rows,
     })
     rk = kernels["K3_reward"]
     print(f"[27] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "

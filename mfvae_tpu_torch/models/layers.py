@@ -22,6 +22,13 @@ it computes the variance.
 keeping its activations, through ``torch.utils.checkpoint`` (non-reentrant,
 the RNG state preserved, though nothing random runs inside): memory for
 FLOPs, with the same values and gradients.
+
+``kernels=True`` (``model.use_pallas``) gives the two lookups by position,
+``Embedding.at`` and ``StackedEmbedding`` of at most
+``lookup_grad.MAX_BINS`` rows a stack, the backward of kernel K4
+(``ops/lookup_grad.py``): the same values, the table gradient's f32 sums in
+another fixed order.  Lookups of ids read from data (``Embedding.take``)
+and wider stacks keep advanced indexing's backward.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from mfvae_tpu_torch.ops import lookup_grad
 
 # the stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -132,15 +141,25 @@ class Embedding(nn.Module):
     """N(0, 1)-initialized embedding table."""
 
     def __init__(self, num_embeddings: int, features: int, dtype=torch.float32,
-                 device=None, generator=None):
+                 device=None, generator=None, kernels: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.kernels = kernels
         self.embedding = _param((num_embeddings, features), device)
         with torch.no_grad():
             nn.init.normal_(self.embedding, 0.0, 1.0, generator=generator)
 
     def forward(self, indices):
         return self.embedding[indices.long()].to(self.dtype)
+
+    def at(self, positions, batch: int):
+        """The rows ``positions`` [S] (distinct, int64) for each of ``batch``
+        rows, [batch, S, F]: the values of
+        ``self(positions[None, :].expand(batch, -1))``; with ``kernels``, a
+        broadcast view whose backward is K4's fixed positions."""
+        if self.kernels and lookup_grad.supports(self.embedding.shape[1], 1, self.dtype):
+            return lookup_grad.lookup_fixed(self.embedding, positions, batch, self.dtype)
+        return self(positions[None, :].expand(batch, -1))
 
     def take(self, indices):
         """The lookup with ``jnp.take``'s rule, as the JAX package's
@@ -214,14 +233,18 @@ class StackedEmbedding(nn.Module):
     product; a gather returns the same values."""
 
     def __init__(self, stack: int, num_embeddings: int, features: int,
-                 dtype=torch.float32, device=None, generator=None):
+                 dtype=torch.float32, device=None, generator=None, kernels: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.kernels = kernels
         self.embedding = _param((stack, num_embeddings, features), device)
         with torch.no_grad():
             nn.init.normal_(self.embedding, 0.0, 1.0, generator=generator)
 
     def forward(self, indices):
         # indices: [B, A] integer
+        _, bins, features = self.embedding.shape
+        if self.kernels and lookup_grad.supports(features, bins, self.dtype):
+            return lookup_grad.lookup_bins(self.embedding, indices, self.dtype)
         stack = torch.arange(self.embedding.shape[0], device=indices.device)
         return self.embedding[stack[None, :], indices.long()].to(self.dtype)

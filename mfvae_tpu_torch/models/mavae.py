@@ -233,7 +233,7 @@ class MAVAE(nn.Module):
         n, af, sum_obs = spec.n_agents, cfg.action_features, sum(spec.obs_dims)
         kw = dict(dtype=dtype, device=device, generator=generator)
         rkw = dict(kw, remat=cfg.remat)  # the JAX model's nn.remat sites
-        self.idx_emb = Embedding(n, cfg.idx_features, **kw)
+        self.idx_emb = Embedding(n, cfg.idx_features, kernels=cfg.use_pallas, **kw)
         self.encoders = nn.ModuleList()
         self.action_encoders = nn.ModuleList()
         enc_out = 2 * f + 2 * s + self.det_features
@@ -242,7 +242,7 @@ class MAVAE(nn.Module):
                 StackedMLP(len(idxs), cfg.idx_features + obs_dim, cfg.encoder_hidden, enc_out, **rkw)
             )
             if self.discrete_act:
-                enc = StackedEmbedding(len(idxs), act_dim, af, **kw)
+                enc = StackedEmbedding(len(idxs), act_dim, af, kernels=cfg.use_pallas, **kw)
             else:
                 enc = StackedMLP(len(idxs), act_dim, cfg.action_encoder_hidden, af, **rkw)
             self.action_encoders.append(enc)
@@ -311,8 +311,7 @@ class MAVAE(nn.Module):
         for g in range(len(self.spec.groups)):
             obs = batch.obs[g]
             if agent_ids is None:
-                ids = self._group_ids(g)[None, :].expand(obs.shape[0], -1)
-                emb = self.idx_emb(ids)
+                emb = self.idx_emb.at(self._group_ids(g), obs.shape[0])
             else:
                 emb = self.idx_emb.take(agent_ids[g])  # ids from data: JAX's rule
             enc_in = torch.cat([emb, obs.to(self.dtype)], dim=-1)

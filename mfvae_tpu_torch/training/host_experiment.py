@@ -10,15 +10,17 @@ where g++ builds it) makes transitions on the CPU into the host ring
 device trains the MAVAE with the port's train step.  ``env.n_host_envs``
 > 1 steps K native envs per call (``NativeBatchedCollector``).
 
-As in the JAX package, the train step is built without ``use_pallas``:
-the host backend runs the plain ops whatever ``model.use_pallas`` says, and
-no test step runs in ``run``.  Each sampled host batch is assembled once
-into pinned staging tensors and copied to the device per field, not per
-agent; the losses are read from the device once per epoch.
+As in the JAX package, the train step (and here the model's layers, K4's
+lookups) is built without ``use_pallas``: the host backend runs the plain
+ops whatever ``model.use_pallas`` says, and no test step runs in ``run``.
+Each sampled host batch is assembled once into pinned staging tensors and
+copied to the device per field, not per agent; the losses are read from
+the device once per epoch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -146,7 +148,8 @@ class HostExperiment:
                 "model.reward_head_mode='twohot' requires train.mode='Adam' "
                 "(ART/POPART normalize scalar reward targets)"
             )
-        model = MAVAE.from_config(cfg.model, self.spec, device=self.device, generator=self.streams["model"])
+        model_cfg = dataclasses.replace(cfg.model, use_pallas=False)
+        model = MAVAE.from_config(model_cfg, self.spec, device=self.device, generator=self.streams["model"])
         self.train_state = create_train_state(model, cfg.train)
         s_col_w = build_s_col_weight(self.spec, cfg, self.device)
         # no use_pallas, as the JAX package builds the host step

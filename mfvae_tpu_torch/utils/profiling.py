@@ -18,7 +18,8 @@
 - ``count(name, n=1)``: integer counters, always on; ``counters()`` is a
   copy of them, ``reset_counters()`` clears them.  The kernels K1-K3w
   (``ops/fused_elbo.py``) count their launches as ``k1.launches``,
-  ``k2.launches``, ``k3.launches`` and ``k3w.launches``; ``WorldModel`` (``inference.py``)
+  ``k2.launches``, ``k3.launches`` and ``k3w.launches``, K4
+  (``ops/lookup_grad.py``) as ``k4.launches``; ``WorldModel`` (``inference.py``)
   its rollout steps as ``rollout.graph_replays`` (a step served by a CUDA
   graph) or ``rollout.eager_steps`` (a step run eagerly), and its captures
   as ``rollout.graph_captures``: replays over all steps is the graphs'

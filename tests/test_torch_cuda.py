@@ -16,6 +16,15 @@ in a fixed order, so two calls on the same inputs are bit-equal.  K3w
 5,660 and of 40) in f32 and bf16, and beside K3 on their shared
 workspace; one unroll step by both routes on the card.
 
+K4 (``ops/lookup_grad.py``), the embedding lookups' backward, against its
+plain version at the b4,096 lookups' shapes ([4,096, 30, 64] and [4,096,
+10, 64]) and ragged ones, in f32 and bf16, both modes: each element within
+2^-19 of the sum of the magnitudes it adds (both sides within 2^-20 of the
+exact sum, as ``tests/test_torch_lookup_grad.py`` holds the plain version
+on the CPU), two calls bit-equal; its launches over a tag_wm train step
+(4), an unroll step (32) and a rollout (0); no ``indexing_backward_kernel``
+in a profiled train step.
+
 ``WorldModel``'s rollout step graphs on a model of the tag_wm widths
 (simple_tag 30/10/20, ``examples/world_model.yaml``, bf16), discrete and
 continuous: the graphed requests against the eager loop of the same
@@ -32,6 +41,7 @@ from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig, load_co
 from mfvae_tpu_torch.data.transitions import VaeBatch
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch
 from mfvae_tpu_torch.ops import fused_elbo as ops
+from mfvae_tpu_torch.ops import lookup_grad as lg
 from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
 from mfvae_tpu_torch.utils import profiling
 
@@ -357,12 +367,13 @@ EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 B, T = 32, 5
 
 
-def _tag_world_model(dev, discrete=True):
+def _tag_world_model(dev, discrete=True, use_pallas=False):
     from mfvae_tpu_torch.envs.mpe import make
     from mfvae_tpu_torch.training.experiment import build_spec
 
     cfg = load_config(str(EXAMPLES / "world_model.yaml"))
     cfg.model.discrete_act = discrete
+    cfg.model.use_pallas = use_pallas
     e = cfg.env
     env = make(e.name, device=dev, num_good_agents=e.num_good_agents, num_adversaries=e.num_adversaries,
                num_obs=e.num_obs, max_steps=e.max_steps, discrete_actions=discrete)
@@ -480,3 +491,125 @@ def test_replayed_rollout_shows_its_kernels_and_spans_under_a_profiler(dev):
     # the graph's kernels (the step, its refeed) and the copies around it;
     # eagerly the strided start costs a few kernels more
     assert eager - 10 <= replayed <= eager + 6 * T + 2, (eager, replayed)
+
+
+# ------------------------------------------------------------------- K4
+K4_REL = 2.0**-19  # two sides, each within 2^-20 of the exact sum
+
+
+def _k4_check(got, g, rows, **kw):
+    """got against the plain version on the CPU, within K4_REL of the sums
+    of the magnitudes each element adds."""
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    want = lg._lookup_grad_plain(g.cpu(), rows, **cpu).double()
+    mag = lg._lookup_grad_plain(g.cpu().abs(), rows, **cpu).double()
+    assert bool(((got.cpu().double() - want).abs() <= K4_REL * mag).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(4096, 30, 64, 5), (4096, 10, 64, 5), (4099, 7, 33, 8), (5, 3, 64, 1)], ids=str)
+def test_lookup_grad(dev, shape, dtype):
+    batch, cols, features, bins = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn(batch, cols, features, generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, bins, (batch, cols), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.randperm(cols + 3, generator=gen, device=dev)[:cols]
+    profiling.reset_counters()
+    for kw, rows in ((dict(pos=pos), cols + 3), (dict(idx=idx, bins=bins), cols * bins),
+                     (dict(idx=idx.long(), bins=bins), cols * bins)):
+        got = lg.lookup_grad(g, rows, **kw)
+        assert torch.equal(lg.lookup_grad(g, rows, **kw), got)
+        _k4_check(got, g, rows, **kw)
+    assert profiling.counters() == {"k4.launches": 6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_lookup_grad_reads_a_misaligned_gradient(dev, dtype):
+    """A contiguous view off a 16-byte boundary: K4 reads it element by element."""
+    batch, cols, features = 4096, 30, 64
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn(batch * cols * features + 1, generator=gen, device=dev).to(dtype)[1:].view(batch, cols, features)
+    assert not lg.lookup_geometry(features, g.element_size(), g.data_ptr()).aligned
+    idx = torch.randint(0, 5, (batch, cols), generator=gen, device=dev)
+    for kw, rows in ((dict(pos=torch.arange(cols, device=dev)), 40), (dict(idx=idx, bins=5), cols * 5)):
+        got = lg.lookup_grad(g, rows, **kw)
+        assert torch.equal(lg.lookup_grad(g, rows, **kw), got)
+        _k4_check(got, g, rows, **kw)
+
+
+def test_lookup_grad_refuses_on_the_card(dev):
+    g = torch.zeros(8, 3, 64, device=dev, dtype=torch.bfloat16)
+    idx = torch.zeros(8, 3, device=dev, dtype=torch.int32)
+    pos = torch.arange(3, device=dev)
+    with pytest.raises(ValueError):
+        lg.lookup_grad(g, 3 * (lg.MAX_BINS + 1), idx=idx, bins=lg.MAX_BINS + 1)
+    with pytest.raises(ValueError):
+        lg.lookup_grad(g[:, :, ::2], 3, pos=pos)  # not contiguous
+    with pytest.raises(TypeError):
+        lg.lookup_grad(g.double(), 3, pos=pos)
+    with pytest.raises(TypeError):
+        lg.lookup_grad(g, 15, idx=idx.to(torch.int16), bins=5)
+    with pytest.raises(ValueError):
+        lg.lookup_grad(g, 3, pos=pos.cpu())
+
+
+def _tag_batch(spec, dev, b, *window):
+    """Random simple_tag inputs: a VaeBatch, or with ``window`` (W,) the
+    windows of an unroll step."""
+    from mfvae_tpu_torch.data.transitions import GroupedTransition
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lead = (b, *window)
+
+    def obs():
+        return tuple(torch.randn(*lead, len(i), od, generator=gen, device=dev) for (od, _), i in spec.groups)
+
+    act = tuple(torch.randint(0, ad, (*lead, len(i)), generator=gen, device=dev, dtype=torch.int32)
+                for (_, ad), i in spec.groups)
+    if window:
+        return GroupedTransition(obs(), act, obs(), torch.randn(*lead, spec.n_agents, generator=gen, device=dev),
+                                 torch.zeros(*lead, device=dev))
+    return VaeBatch(GroupedBatch(obs(), act), torch.randn(b, sum(spec.obs_dims), generator=gen, device=dev),
+                    torch.randn(b, spec.n_agents, generator=gen, device=dev))
+
+
+def test_k4_launches_over_a_train_step_an_unroll_step_and_a_rollout(dev):
+    """tag_wm (simple_tag 30/10/20, model.use_pallas): a train step runs K4
+    once a group for the agent-index embedding and once a group for the
+    actions, 4; an unroll step of W = 8 32; a rollout (no backward) none."""
+    from mfvae_tpu_torch.training.unroll import make_unroll_train_step
+
+    model = _tag_world_model(dev, use_pallas=True)
+    spec, loss = model.spec, load_config(str(EXAMPLES / "world_model.yaml")).loss
+    state = create_train_state(model, TrainConfig())
+    profiling.reset_counters()
+    make_train_step(loss, use_pallas=True)(state, _tag_batch(spec, dev, 64), torch.Generator(device=dev).manual_seed(1))
+    assert profiling.counters() == {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2, "k4.launches": 4}
+    profiling.reset_counters()
+    make_unroll_train_step(spec, loss, 8, use_pallas=True)(state, _tag_batch(spec, dev, 64, 8),
+                                                           torch.Generator(device=dev).manual_seed(2))
+    assert profiling.counters() == {"k1.launches": 8, "k2.launches": 8, "k3w.launches": 2, "k4.launches": 32}
+    wm = inference.WorldModel(model)
+    obs, plan = _request(model, dev, 5)
+    profiling.reset_counters()
+    for _ in range(3):  # eager, captured, replayed
+        wm._rollout(obs, plan)
+    assert "k4.launches" not in profiling.counters()
+
+
+def test_a_profiled_train_step_runs_k4_and_no_indexing_backward(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _tag_world_model(dev, use_pallas=True)
+    state = create_train_state(model, TrainConfig())
+    step = make_train_step(load_config(str(EXAMPLES / "world_model.yaml")).loss, use_pallas=True)
+    batch, gen = _tag_batch(model.spec, dev, 256), torch.Generator(device=dev).manual_seed(3)
+    step(state, batch, gen)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    on_device = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [n for n in on_device if "indexing_backward" in n]
+    assert sum("lookup_grad_kernel" in n for n in on_device) == 4
+    assert [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA].count("mfvae.k4") == 4
