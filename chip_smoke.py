@@ -226,25 +226,17 @@ Phases (each exits non-zero on failure; nothing is caught and passed over):
    2^-7, the model's bf16 tolerance), and unlike the positional forward.
    Launches K1 = 5, K2 = 3, K3 = 10, K4 = 12 (the actions' lookups in both
    routes' steps; the ids from the data keep the agent-index gather).
-26. The measurement entry points (mfvae_tpu_torch/bench/) at full width,
-   printed beside the card's name and power limit.  (a) python -m
-   mfvae_tpu_torch.bench's run, each row a few steps: every key of
-   bench.py's output (read from its source as text) and the port's
-   extras, null only where "absent" names the key, every number finite
-   and positive, the JSON naming the card.  (b) perf_matrix (its
-   population rows at 80 agents only), mfu_ceiling (big_4096 included) and
-   pallas_probe, a few steps a row: each row with perf_matrix.py's row keys,
-   its MFU and its peak device memory.  (c) bench_inference (predict and
-   rollout at B = 1, 64, 1,024; the four actors over 4 episodes of 2 steps)
-   and native_env_bench.  (d) At pallas_probe's shape, det128 b4096, one
-   train step by the plain route and one by K1-K3 from copies of one state
-   and one generator state: the losses within rtol 1e-4.  Launches over
-   (a)-(d): K1 = K2 = the kernel-route rows' steps + 1, K3 twice that.
-   (e) K3 alone at n = 4,096 x 5,660 = 23,183,360 in float32 and bfloat16
-   against its plain version (rtol 1e-5, atol 0, as phase 3), twice
-   bit-equal.  (f) K1-K3 at the b4096 shapes ([163,840, 64] latents, the
-   state and reward branches of K3): each held against its plain version
-   on the same tensors with phase 3's gates, then timed as in phase 3.
+26. The b4096 step and shapes.  (d) det128 b4096 on simple_tag 30/10/20
+   (the model from build_spec and MAVAE.from_config, a batch drawn on the
+   card from seed 26), one train step by the plain route and one by K1-K3
+   from copies of one state and one generator state: the losses within
+   rtol 1e-4.  Launches: K1 = K2 = 1, K3 = 2 (the kernel route's one step;
+   its model has no use_pallas, so no K4).  (e) K3 alone at n = 4,096 x
+   5,660 = 23,183,360 in float32 and bfloat16 against its plain version
+   (rtol 1e-5, atol 0, as phase 3), twice bit-equal.  (f) K1-K3 at the
+   b4096 shapes ([163,840, 64] latents, the state and reward branches of
+   K3): each held against its plain version on the same tensors with
+   phase 3's gates, then timed as in phase 3.
 27. The kernel list as one JSON line (K1-K3, K3w at phase 23's state
    shape, K4 at phase 3's shapes), the card, and the result line.  Every
    phase's launch counts cover K1-K4.
@@ -2000,106 +1992,43 @@ def unroll_routes_phase(exp, dev, median_ms, bound) -> dict:
     return out
 
 
-# ------------------------------------------- 26. the measurement entry points
-# iteration counts of phase 26's cut runs (full widths): a few steps a row
-BENCH_CUT = dict(n_scan=3, n_pipelined=3, n_wall=2, n_multiseed=2, n_scaling=2, n_unroll=2, n_epochs=2,
-                 reps=1, reps_rows=1, warmup=1)
-MEASURE_CUT = dict(n_scan=3, reps=1, warmup=1)
-INFERENCE_CUT = dict(n_predict=3, n_latency=3, n_rollout=2, reps=1, n_episodes=4, ep_len=2)
-NATIVE_CUT = dict(n_single=200, n_batched=20, n_envs=64, n_local=10)
-K3_B4096_N = 4096 * 5660  # K3's state tensor at pallas_probe's b4096
+# ----------------------------------------------- 26. the b4096 step and shapes
+K3_B4096_N = 4096 * 5660  # K3's state tensor at det128 b4096
 
 
-def bench_phase(dev, smi: str, median_ms, bound) -> dict:
-    """Phase 26: each entry point of mfvae_tpu_torch/bench/ once at full
-    width with cut counts, one det128 b4096 train step by each route, then
-    K3 alone at b4096's state size, and K1-K3 timed at b4096's shapes.
-    Returns the phase's numbers and its launches."""
+def b4096_phase(dev, median_ms, bound) -> dict:
+    """Phase 26: one det128 b4096 train step by each route, then K3 alone
+    at b4096's state size, and K1-K3 timed at b4096's shapes.  Returns the
+    phase's numbers and its launches."""
     import torch
     import torch.nn.functional as F
 
-    from mfvae_tpu_torch.bench import __main__ as bench_main
-    from mfvae_tpu_torch.bench import bench_inference, flagship, mfu_ceiling, native_env_bench, pallas_probe, perf_matrix
-    from mfvae_tpu_torch.bench.common import source_dict_keys
     from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig
+    from mfvae_tpu_torch.data.transitions import VaeBatch
+    from mfvae_tpu_torch.envs.mpe import make
+    from mfvae_tpu_torch.models.mavae import MAVAE, GroupedBatch
     from mfvae_tpu_torch.ops import fused_elbo as ops
+    from mfvae_tpu_torch.training.experiment import build_spec
     from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
     from mfvae_tpu_torch.utils import profiling
 
-    root = Path(__file__).resolve().parent
     t_phase = time.perf_counter()
-    out = {"walls_s": {}}
-    print(f"[26] card: {smi}", flush=True)
+    out = {}
     profiling.reset_counters()
 
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        r = fn()
-        out["walls_s"][name] = time.perf_counter() - t0
-        return r
-
-    def on_card(obj: dict, what: str):
-        d = obj["device"]
-        check(d["platform"] == "gpu" and d["kind"] == torch.cuda.get_device_name(0) and d["nvidia_smi"] == smi,
-              f"{what}: the JSON does not name the card ({d})")
-
-    # (a) bench.py's counterpart: every key of bench.py's out, measured here
-    b = timed("bench", lambda: bench_main.run(dev, **BENCH_CUT))
-    jax_keys = source_dict_keys(root / "bench.py", "main", "out")
-    extra = set(b) - jax_keys
-    check(jax_keys <= set(b) and extra == {"absent", "device", "peak_flops", "step_flops_source", "mfu_pct_note",
-                                           "multiseed_4x_discipline", "counts"},
-          f"bench: keys differ from bench.py's: missing {jax_keys - set(b)}, extra {extra}")
-    nulls = {k for k, v in b.items() if v is None}
-    check(nulls == set(b["absent"]), f"bench: null keys {sorted(nulls)} are not the absent ones {sorted(b['absent'])}")
-    numbers = [v for k, v in b.items() if isinstance(v, (int, float)) and not isinstance(v, bool)]
-    numbers += [x for row in b["batch_scaling"].values() for x in row.values()]
-    check(all(math.isfinite(v) and v > 0 for v in numbers), "bench: a number is not finite and positive")
-    on_card(b, "bench")
-    print(f"[26] bench: value {b['value']:.1f} samples/s ({b['value_discipline']}), mfu_pct {b['mfu_pct']:.3f}, "
-          f"wall epoch {b['wall_epoch_seconds']:.4f} s, step_flops {b['step_flops']}", flush=True)
-    out["bench"] = {k: b[k] for k in ("value", "mfu_pct", "wall_epoch_seconds", "step_flops")}
-
-    # (b) the three scripts sharing measure(): the same row keys as JAX's
-    row_keys = source_dict_keys(root / "scripts" / "perf_matrix.py", "measure", "row")
-    rows = []
-    for name, fn, table in (
-        ("perf_matrix", lambda: perf_matrix.run(dev, populations=((60, 20),), **MEASURE_CUT), "matrix"),
-        ("mfu_ceiling", lambda: mfu_ceiling.run(dev, **MEASURE_CUT), "mfu_ceiling"),
-        ("pallas_probe", lambda: pallas_probe.run(dev, **MEASURE_CUT), "pallas_probe"),
-    ):
-        t = timed(name, fn)
-        on_card(t, name)
-        for r in t[table]:
-            check(set(r) - {"device", "compute_dtype", "route", "steps", "max_memory_allocated"} == row_keys,
-                  f"{name} {r['label']}: keys {sorted(r)}")
-            check(r["mfu_pct"] is not None and r["mfu_pct"] > 0 and r["max_memory_allocated"] > 0,
-                  f"{name} {r['label']}: mfu_pct or max_memory_allocated missing")
-            print(f"[26] {name} {r['label']} b{r['batch']} ({r['route']}): {r['ms_per_step']:.3f} ms a step, "
-                  f"mfu {r['mfu_pct']:.3f}%, peak {r['max_memory_allocated'] / 2**30:.3f} GiB", flush=True)
-        rows += t[table]
-    check([r["label"] for r in rows if r["route"] == "kernels"]
-          == ["pallas", "det128_b256_pallas", "det128_b4096_pallas"], "the kernel-route rows are not the three named")
-    kernel_steps = sum(r["steps"] for r in rows if r["route"] == "kernels")
-    out["rows"] = [{k: r[k] for k in ("label", "batch", "ms_per_step", "mfu_pct", "max_memory_allocated")}
-                   for r in rows]
-
-    # (c) serving and planning; the host engine
-    inf = timed("bench_inference", lambda: bench_inference.run(dev, **INFERENCE_CUT))
-    on_card(inf, "bench_inference")
-    check(len(inf) == 16 and all(math.isfinite(v) and v > 0 for k, v in inf.items() if k != "device"),
-          f"bench_inference: {sorted(inf)}")
-    nat = timed("native_env_bench", lambda: native_env_bench.run(dev, **NATIVE_CUT))
-    on_card(nat, "native_env_bench")
-    check(set(nat["native_env_bench"]) == set(native_env_bench.JAX_NAMES.values()) | {"speedup_single",
-                                                                                     "speedup_batched"},
-          f"native_env_bench: {sorted(nat['native_env_bench'])}")
-
-    # (d) pallas_probe's shape, det128 b4096: one train step by each route
+    # (d) det128 b4096 on simple_tag 30/10/20: one train step by each route
     # from copies of one state and one generator state
-    spec = flagship.flagship_spec()
-    model = flagship.build_model(ModelConfig(det_features=128), spec, dev)
-    batch = flagship.flagship_batch(spec, 4096, dev)
+    spec = build_spec(make("MPE_simple_tag_v3", device="cpu"))
+    model = MAVAE.from_config(ModelConfig(det_features=128), spec, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    draw, b = torch.Generator(device=dev).manual_seed(26), 4096
+    inputs = GroupedBatch(
+        obs=tuple(torch.randn(b, len(i), od, generator=draw, device=dev) for (od, _), i in spec.groups),
+        actions=tuple(torch.randint(0, ad, (b, len(i)), generator=draw, device=dev, dtype=torch.int32)
+                      for (_, ad), i in spec.groups),
+    )
+    batch = VaeBatch(inputs=inputs, next_state=torch.randn(b, sum(spec.obs_dims), generator=draw, device=dev),
+                     rewards=torch.randn(b, spec.n_agents, generator=draw, device=dev))
     state = create_train_state(model, TrainConfig())
     gen = torch.Generator(device=dev).manual_seed(2)
     losses = {}
@@ -2108,7 +2037,7 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
         twin_gen.set_state(gen.get_state())
         _, o = make_train_step(LossConfig(), use_pallas=use_pallas)(twin, batch, twin_gen)
         losses[use_pallas] = [float(x) for x in o]
-    del twin, state, model
+    del twin, state, model, batch, inputs
     gap = max(abs(p - q) / abs(p) for p, q in zip(losses[False], losses[True]))
     out["b4096_routes"] = {"plain": losses[False], "kernels": losses[True], "max_rel_gap": gap}
     print(f"[26] det128 b4096 one step: loss plain {losses[False][0]:.7f} kernels {losses[True][0]:.7f}; "
@@ -2117,14 +2046,11 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
 
     torch.cuda.synchronize()
     launches = launch_counts()
-    n = kernel_steps + 1
-    # K4 in the kernel-route rows' steps (their models' use_pallas), not in
-    # the b4096 routes' model
-    want = {"k1.launches": n, "k2.launches": n, "k3.launches": 2 * n, "k3w.launches": 0,
-            "k4.launches": kernel_steps * k4_per_step(flagship.flagship_spec(), ModelConfig())}
-    print(f"[26] launches {launches}: the kernel-route rows' {kernel_steps} steps and the b4096 step", flush=True)
+    # the kernel route's one step; its model has no use_pallas, so no K4
+    want = {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2, "k3w.launches": 0, "k4.launches": 0}
+    print(f"[26] launches {launches}: the b4096 step of each route", flush=True)
     check(launches == want, f"phase 26: launch counts {launches}, expected {want}")
-    out["launches"] = {"bench: entry points + det128 b4096 routes": launches}
+    out["launches"] = {"b4096: det128 routes": launches}
 
     # (e) K3 alone at n = 4,096 x 5,660 (the multi-block grid, its arrival
     # ticket over 528 partials on 132 SMs) in f32 and bf16, against its plain
@@ -2190,8 +2116,7 @@ def bench_phase(dev, smi: str, median_ms, bound) -> dict:
               f"plain {1e3 * k['plain_ms']:.2f} us  library {lib_us}  bound {1e3 * bound_ms:.2f} us ({bound_by})",
               flush=True)
     out["phase_wall_s"] = time.perf_counter() - t_phase
-    print(f"[26] entry point walls (s): {json.dumps(out['walls_s'])}; phase wall {out['phase_wall_s']:.1f} s",
-          flush=True)
+    print(f"[26] phase wall {out['phase_wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -2889,10 +2814,10 @@ def main() -> None:
     path_launches.update(reference_out.pop("launches"))
     print(f"[25] reference dicts summary: {json.dumps(reference_out)}")
 
-    # ----------------------------------------- 26. the measurement entry points
-    bench_out = bench_phase(dev, smi, median_ms, bound)
-    path_launches.update(bench_out.pop("launches"))
-    print(f"[26] measurement entry points summary: {json.dumps(bench_out)}")
+    # ----------------------------------------------- 26. the b4096 step and shapes
+    b4096_out = b4096_phase(dev, median_ms, bound)
+    path_launches.update(b4096_out.pop("launches"))
+    print(f"[26] b4096 summary: {json.dumps(b4096_out)}")
 
     # ------------------------------------------------------ 27. the kernel list
     src = "mfvae_tpu_torch/ops/csrc/fused_elbo.cu"
@@ -2910,7 +2835,7 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
             "launches_by_path": {path: n[counter] for path, n in path_launches.items()},
-            "at_b4096": bench_out["kernels_b4096"][key],
+            "at_b4096": b4096_out["kernels_b4096"][key],
         })
     # K3w, at the unroll cell's state shape (phase 23); the JAX package has no such kernel
     k = unroll_out["k3w"]["state"]
@@ -2936,7 +2861,7 @@ def main() -> None:
     rk = kernels["K3_reward"]
     print(f"[27] K3 at the reward branch (n={b * a}): kernel {rk['ms']} ms plain {rk['plain_ms']} ms "
           f"library {rk['library_ms']} ms bound {rk['bound_ms']} ms launch floor {floor_ms} ms")
-    print(f"[27] K3 at b4096's reward branch: {json.dumps(bench_out['kernels_b4096']['K3_reward'])}")
+    print(f"[27] K3 at b4096's reward branch: {json.dumps(b4096_out['kernels_b4096']['K3_reward'])}")
     for label, w in walls.items():
         print(f"[27] per-epoch wall ms, {label}: {w}")
     print(f"[27] script wall {time.perf_counter() - t_script:.1f} s")

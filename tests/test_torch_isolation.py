@@ -7,10 +7,13 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-# scripts/torch_distill_seed_ci.py runs the port alone on the card; the
-# older scripts/torch_* that measure JAX's seed bands import both packages
-FILES = sorted((ROOT / "mfvae_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                            ROOT / "scripts" / "torch_distill_seed_ci.py"]
+# the scripts/torch_* that run the port alone on the card; torch_seed_band,
+# torch_vdn_seed_band and torch_tooling_band (through torch_seed_band)
+# measure JAX's seed bands and import both packages
+CARD_SCRIPTS = ("ab_smoke", "baseline_run", "canonical_run", "distill_seed_ci", "epoch_breakdown", "k3_variants",
+                "span_split")
+FILES = sorted((ROOT / "mfvae_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "scripts" / f"torch_{name}.py" for name in CARD_SCRIPTS]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "mfvae_tpu")
 
 
@@ -47,10 +50,6 @@ def test_scan_sees_the_whole_package():
                  "mfvae_tpu_torch/training/vae_experiment.py", "mfvae_tpu_torch/parallel/__init__.py",
                  "mfvae_tpu_torch/parallel/mesh.py", "mfvae_tpu_torch/parallel/sharding.py",
                  "mfvae_tpu_torch/parallel/tp.py", "mfvae_tpu_torch/parallel/dp.py",
-                 "mfvae_tpu_torch/parallel/pp.py", "mfvae_tpu_torch/bench/flagship.py",
-                 "mfvae_tpu_torch/bench/common.py", "mfvae_tpu_torch/bench/__main__.py",
-                 "mfvae_tpu_torch/bench/perf_matrix.py", "mfvae_tpu_torch/bench/mfu_ceiling.py",
-                 "mfvae_tpu_torch/bench/pallas_probe.py", "mfvae_tpu_torch/bench/bench_inference.py",
-                 "mfvae_tpu_torch/bench/native_env_bench.py", "chip_smoke.py",
-                 "scripts/torch_distill_seed_ci.py"):
+                 "mfvae_tpu_torch/parallel/pp.py", "mfvae_tpu_torch/bench/common.py", "chip_smoke.py",
+                 *(f"scripts/torch_{name}.py" for name in CARD_SCRIPTS)):
         assert must in names
