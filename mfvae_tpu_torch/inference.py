@@ -36,20 +36,34 @@ weights; a replaced or moved tensor changes the key and forces a new
 capture.  The first request of a key runs eagerly, which warms up the
 capture; the second captures and replays.  ``GRAPH_KEYS`` graphs are kept,
 and the one used least recently goes first.  The CPU, and a start that is
-not float32 (the refeed is), run the eager loop.  Counters
+not float32 (the refeed is), run the eager loop.
+
+A step graph of a model that computes in bf16 reads its weights cast: it
+holds a cast store, one persistent tensor of the compute dtype for the
+``kernel`` and the ``bias`` of every ``Dense`` and ``StackedDense``, and
+is captured with those tensors in place of the float32 parameters, so a
+layer's own cast of its weights launches nothing in the graph.  The store
+is refreshed from the parameters once a request, before its first replay
+(the same rounding as the layers' own casts, so a replay stays bit-equal
+to the eager loop), and so reads an update in place as the graph does.
+LayerNorm's ``scale`` and ``bias`` stay out (it computes in float32 and
+reads them uncast), and so do the embedding tables (a lookup gathers rows
+before it casts them).  A float32 model has no store.  Counters
 (``utils/profiling.py``): ``rollout.graph_captures``,
-``rollout.graph_replays`` (one a step) and ``rollout.eager_steps``.
+``rollout.graph_replays`` (one a step), ``rollout.eager_steps`` and
+``rollout.cast_refreshes`` (one a request replayed on a cast store).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from mfvae_tpu_torch.config import ModelConfig
+from mfvae_tpu_torch.models.layers import Dense, StackedDense
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch, state_to_grouped, zero_actions_grouped
 from mfvae_tpu_torch.utils.profiling import count, span
 
@@ -67,13 +81,37 @@ class _MeanCall(nn.Module):
         return self.model.mean_call(batch)
 
 
+def _cast_store(mean: _MeanCall) -> Dict[str, Tuple[nn.Parameter, torch.Tensor]]:
+    """The cast store of a step graph (module docstring): for each
+    ``kernel`` and ``bias`` of a ``Dense`` or ``StackedDense`` that
+    computes in another dtype than its parameters', its name under
+    ``mean`` -> (the parameter, an empty tensor of the layer's dtype)."""
+    store = {}
+    for name, layer in mean.named_modules():
+        if isinstance(layer, (Dense, StackedDense)):
+            for leaf in ("kernel", "bias"):
+                p = getattr(layer, leaf)
+                if p is not None and p.dtype != layer.dtype:
+                    store[f"{name}.{leaf}"] = (p, torch.empty_like(p, dtype=layer.dtype))
+    return store
+
+
 class _StepGraph:
     """One rollout step captured as a CUDA graph (``graph``): ``step`` on
     the static buffers ``obs`` and ``act``.  A replay overwrites ``ns``
-    [B, Σobs] and ``rw`` [B, A], the step's outputs, and ``obs``."""
+    [B, Σobs] and ``rw`` [B, A], the step's outputs, and ``obs``.
+
+    ``casts`` is the graph's cast store (module docstring), allocated
+    before the capture and read by the captured step in place of the
+    float32 ``Dense``/``StackedDense`` weights; ``refresh`` fills it from
+    the parameters, once a request.  Empty for a float32 model."""
 
     def __init__(self, model: MAVAE, obs_g, actions, device: torch.device):
         self.model = model
+        self._mean = _MeanCall(model)
+        store = _cast_store(self._mean)
+        self._params = [p for p, _ in store.values()]
+        self.casts = {name: cast for name, (_, cast) in store.items()}
         self.obs = tuple(torch.empty(o.shape, dtype=o.dtype, device=device) for o in obs_g)
         self.act = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in actions)
         self._capture()
@@ -83,10 +121,16 @@ class _StepGraph:
         with torch.cuda.graph(self.graph):
             self.step()
 
+    def refresh(self) -> None:
+        """The cast store from the parameters as they are now."""
+        torch._foreach_copy_(list(self.casts.values()), self._params)
+
     def step(self) -> None:
-        """``mean_call`` on the buffers, then the refeed: the predicted
-        state re-split into ``obs``, the next step's input."""
-        self.ns, self.rw = self.model.mean_call(GroupedBatch(obs=self.obs, actions=self.act))
+        """``mean_call`` on the buffers and the cast store, then the
+        refeed: the predicted state re-split into ``obs``, the next
+        step's input."""
+        batch = GroupedBatch(obs=self.obs, actions=self.act)
+        self.ns, self.rw = torch.func.functional_call(self._mean, self.casts, (batch,))
         for buf, o in zip(self.obs, state_to_grouped(self.model.spec, self.ns)):
             buf.copy_(o)
 
@@ -168,7 +212,8 @@ class WorldModel:
         (eagerly its ``mean_call``, then ``rollout.refeed``, the state
         re-split; on the graph the step's copies around ``rollout.replay``)
         and ``rollout.capture`` before the first step of a capturing
-        request."""
+        request; on a cast store ``rollout.cast`` once a request, before
+        its first step."""
         key = self._graph_key(obs_g, action_plan)
         graph = self._graphs.get(key)
         if graph is None and key in self._seen:
@@ -209,9 +254,14 @@ class WorldModel:
         return (dev, tuple((tuple(x.shape), x.dtype) for x in inputs), tuple(t.data_ptr() for t in tensors))
 
     def _replay(self, graph: _StepGraph, obs_g, action_plan):
-        """The request on ``graph``: the start copied in, then per step the
-        actions copied in, a replay, the outputs copied out into tensors of
-        this request's own."""
+        """The request on ``graph``: its cast store refreshed (span
+        ``rollout.cast``), the start copied in, then per step the actions
+        copied in, a replay, the outputs copied out into tensors of this
+        request's own."""
+        if graph.casts:
+            with span("rollout.cast"):
+                graph.refresh()
+            count("rollout.cast_refreshes")
         horizon = action_plan[0].shape[0]
         states = torch.empty((horizon, *graph.ns.shape), dtype=graph.ns.dtype, device=graph.ns.device)
         rewards = torch.empty((horizon, *graph.rw.shape), dtype=graph.rw.dtype, device=graph.rw.device)

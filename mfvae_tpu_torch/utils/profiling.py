@@ -21,9 +21,10 @@
   ``k2.launches``, ``k3.launches`` and ``k3w.launches``, K4
   (``ops/lookup_grad.py``) as ``k4.launches``; ``WorldModel`` (``inference.py``)
   its rollout steps as ``rollout.graph_replays`` (a step served by a CUDA
-  graph) or ``rollout.eager_steps`` (a step run eagerly), and its captures
-  as ``rollout.graph_captures``: replays over all steps is the graphs'
-  hit share.
+  graph) or ``rollout.eager_steps`` (a step run eagerly), its captures
+  as ``rollout.graph_captures`` and the refreshes of a graph's cast store
+  as ``rollout.cast_refreshes`` (one a graphed request of a bf16 model):
+  replays over all steps is the graphs' hit share.
 """
 
 from __future__ import annotations

@@ -28,7 +28,11 @@ in a profiled train step.
 ``WorldModel``'s rollout step graphs on a model of the tag_wm widths
 (simple_tag 30/10/20, ``examples/world_model.yaml``, bf16), discrete and
 continuous: the graphed requests against the eager loop of the same
-model, bit for bit (the same kernels on the same inputs).
+model, bit for bit (the same kernels on the same inputs, the weights read
+from the graph's bf16 cast store, refreshed once a graphed request, also
+after an update in place); a replayed request runs at least 40 kernels a
+step fewer than the eager one (its 42 weight casts a step are gone) and
+one ``rollout.cast`` span.
 """
 
 from pathlib import Path
@@ -411,7 +415,8 @@ def test_rollout_graph_replays_the_eager_loop(dev, discrete):
     profiling.reset_counters()
     _equal(wm._rollout(obs_a, plan_a), want_a)  # eager
     got_a = wm._rollout(obs_a, plan_a)  # captured, then replayed
-    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T}
+    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T,
+                                    "rollout.cast_refreshes": 1}
     kept = tuple(x.clone() for x in got_a)
     got_b = wm._rollout(obs_b, plan_b)
     _equal(got_a, want_a)
@@ -419,6 +424,7 @@ def test_rollout_graph_replays_the_eager_loop(dev, discrete):
     _equal(got_a, kept)  # request 1's tensors after request 2
     _equal(wm._rollout(obs_b, tuple(p[:2] for p in plan_b)), tuple(x[:2] for x in want_b))  # another horizon
     assert profiling.counters()["rollout.graph_captures"] == 1
+    assert profiling.counters()["rollout.cast_refreshes"] == 3  # one a graphed request
 
 
 def test_rollout_graph_reads_updated_and_replaced_parameters(dev):
@@ -433,7 +439,7 @@ def test_rollout_graph_reads_updated_and_replaced_parameters(dev):
     want = _eager(model, obs, plan)
     profiling.reset_counters()
     _equal(wm._rollout(obs, plan), want)
-    assert profiling.counters() == {"rollout.graph_replays": T}
+    assert profiling.counters() == {"rollout.graph_replays": T, "rollout.cast_refreshes": 1}
     model.reward_linear.kernel = torch.nn.Parameter(2 * model.reward_linear.kernel.detach())
     want = _eager(model, obs, plan)
     profiling.reset_counters()
@@ -441,7 +447,7 @@ def test_rollout_graph_reads_updated_and_replaced_parameters(dev):
         _equal(wm._rollout(obs, plan), want)
     # a new key: served eagerly, then captured
     assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1,
-                                    "rollout.graph_replays": T}
+                                    "rollout.graph_replays": T, "rollout.cast_refreshes": 1}
 
 
 def test_rollout_graph_keeps_the_newest_keys(dev):
@@ -454,7 +460,8 @@ def test_rollout_graph_keeps_the_newest_keys(dev):
         for _ in range(2):
             wm._rollout(obs, plan)
     assert [key[1][0][0][0] for key in wm._graphs] == sizes[1:]
-    assert profiling.counters() == {"rollout.eager_steps": 10, "rollout.graph_captures": 5, "rollout.graph_replays": 10}
+    assert profiling.counters() == {"rollout.eager_steps": 10, "rollout.graph_captures": 5, "rollout.graph_replays": 10,
+                                    "rollout.cast_refreshes": 5}
     obs, plan = _request(model, dev, 0, b=8, t=2)
     wm._rollout(obs, plan)  # evicted: eager again
     assert profiling.counters()["rollout.eager_steps"] == 12
@@ -488,9 +495,11 @@ def test_replayed_rollout_shows_its_kernels_and_spans_under_a_profiler(dev):
     host, replayed = traced(wm)
     assert host.count("mfvae.rollout.step") == host.count("mfvae.rollout.replay") == T
     assert "mfvae.rollout.refeed" not in host and "mfvae.rollout.capture" not in host
-    # the graph's kernels (the step, its refeed) and the copies around it;
-    # eagerly the strided start costs a few kernels more
-    assert eager - 10 <= replayed <= eager + 6 * T + 2, (eager, replayed)
+    assert host.count("mfvae.rollout.cast") == 1  # the cast store's refresh, once a request
+    # the graph's kernels (the step, its refeed, no weight cast) and the
+    # copies around it: eagerly each step casts the 42 Dense/StackedDense
+    # kernels and biases
+    assert replayed <= eager - 40 * (T - 1), (eager, replayed)
 
 
 # ------------------------------------------------------------------- K4

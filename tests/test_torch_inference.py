@@ -23,8 +23,13 @@
   (``_EagerStepGraph``), the graphed path's bookkeeping (capture on a
   key's second request, replays, eviction of the oldest of
   ``GRAPH_KEYS``, a new key for a replaced parameter) and its copies give
-  the eager loop's outputs bit for bit.  The card's own graphs are
-  tested in ``tests/test_torch_cuda.py``.
+  the eager loop's outputs bit for bit, on a bf16 model through its cast
+  store (one refresh a graphed request, an update in place read; discrete
+  and continuous, two horizons).  The store holds the ``Dense`` and
+  ``StackedDense`` kernels and biases of ``examples/world_model.yaml``
+  (42) in bf16, and no LayerNorm or embedding parameter; a float32 model
+  has none.  The card's own graphs are tested in
+  ``tests/test_torch_cuda.py``.
 - The agent-index buffers of ``MAVAE``: out of the state dict, and
   ``encode``/``_add_action_delta`` give the values of the ids built from
   host lists, bit for bit.
@@ -58,14 +63,15 @@ from mfvae_tpu_torch.envs.mpe import MPEState as TState
 from mfvae_tpu_torch.envs.mpe import SimpleTagEnv as TEnv
 from mfvae_tpu_torch.inference import WorldModel
 from mfvae_tpu_torch.models.convert import params_from_jax
-from mfvae_tpu_torch.models.mavae import MAVAE, GroupedBatch, agent_order_concat
+from mfvae_tpu_torch.models.layers import Embedding, LayerNorm, StackedEmbedding
+from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch, agent_order_concat
 from mfvae_tpu_torch.rollout_eval import flatten_global_state, ground_truth, rollout_accuracy, score
 from mfvae_tpu_torch.training.experiment import Experiment, build_spec
 from tests.test_torch_experiment import one_torch_thread  # noqa: F401
 from mfvae_tpu_torch.utils import profiling
 from tests.test_torch_options import EXAMPLES, OPTIONS, tiny
 from tests.test_torch_options import build as build_options
-from tests.test_torch_unroll import SMALL, build
+from tests.test_torch_unroll import AGENTS, OBS, SMALL, build
 
 B, T = 4, 5
 
@@ -293,8 +299,20 @@ def _equal(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _bf16(build_out):
+    """``build()``'s model computing in bf16, on the same parameters: the
+    graphed path then runs on a cast store."""
+    jspec, tspec, _, variables, _ = build_out
+    tmodel = MAVAE.from_config(ModelConfig(**{**SMALL, "compute_dtype": "bfloat16"}), tspec, device="cpu")
+    tmodel.load_state_dict(params_from_jax(variables), strict=True)
+    return jspec, tspec, tmodel
+
+
+CAST = "rollout.cast_refreshes"
+
+
 def test_graphed_path_replays_the_eager_loop(eager_graphs):
-    jspec, tspec, _, _, tmodel = build()
+    jspec, tspec, tmodel = _bf16(build())
     wm = WorldModel(tmodel)
     (_, a), (_, b) = _batch(jspec, 7), _batch(jspec, 8)
     # views of other strides, as the planners pass them
@@ -304,7 +322,8 @@ def test_graphed_path_replays_the_eager_loop(eager_graphs):
     first = wm._rollout(obs_a, plan_a)  # eager: the key's first request
     assert profiling.counters() == {"rollout.eager_steps": T}
     second = wm._rollout(obs_a, plan_a)  # captures, then replays
-    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T}
+    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T,
+                                    CAST: 1}
     _equal(first, second)
     kept = tuple(x.clone() for x in second)
     got_b = wm._rollout(b.obs, plan_b)
@@ -312,10 +331,11 @@ def test_graphed_path_replays_the_eager_loop(eager_graphs):
     _equal(second, kept)  # a request's outputs are its own
     _equal(wm._rollout(obs_a, tuple(p[:2] for p in plan_a)), tuple(x[:2] for x in first))  # another horizon
     assert profiling.counters()["rollout.graph_captures"] == 1 and len(wm._graphs) == 1
+    assert profiling.counters()[CAST] == 3  # one a graphed request
 
 
 def test_graphed_path_reads_updated_and_replaced_parameters(eager_graphs):
-    jspec, tspec, _, _, tmodel = build()
+    jspec, tspec, tmodel = _bf16(build())
     wm = WorldModel(tmodel)
     _, tb = _batch(jspec, 11)
     plan = _grouped_plan(tspec, 12)
@@ -333,10 +353,11 @@ def test_graphed_path_reads_updated_and_replaced_parameters(eager_graphs):
         assert profiling.counters()["rollout.graph_captures"] == captures
     # the key's first request, the new key's first one and the two references
     assert profiling.counters()["rollout.eager_steps"] == 4 * T
+    assert profiling.counters()[CAST] == 3  # the two graphed requests of the first key, one of the new key
 
 
 def test_graphed_path_keeps_the_newest_keys(eager_graphs):
-    jspec, tspec, _, _, tmodel = build()
+    jspec, tspec, tmodel = _bf16(build())
     wm = WorldModel(tmodel)
     sizes = [1, 2, 3, 4, 5]
     assert len(sizes) == inference.GRAPH_KEYS + 1
@@ -346,7 +367,72 @@ def test_graphed_path_keeps_the_newest_keys(eager_graphs):
         for _ in range(2):
             wm._rollout(tb.obs, plan)
     assert [key[1][0][0][0] for key in wm._graphs] == sizes[1:]  # B of each kept key, oldest first
-    assert profiling.counters() == {"rollout.eager_steps": 10, "rollout.graph_captures": 5, "rollout.graph_replays": 10}
+    assert profiling.counters() == {"rollout.eager_steps": 10, "rollout.graph_captures": 5, "rollout.graph_replays": 10,
+                                    CAST: 5}
+
+
+def _continuous_bf16():
+    spec = AgentSpec.from_dicts(AGENTS, OBS, {a: 2 for a in AGENTS})
+    cfg = ModelConfig(**{**SMALL, "compute_dtype": "bfloat16", "discrete_act": False})
+    return spec, MAVAE.from_config(cfg, spec, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def test_cast_store_replays_the_eager_loop_on_continuous_actions(eager_graphs):
+    """The discrete model's cast store is in the three tests above."""
+    spec, model = _continuous_bf16()
+    g = torch.Generator().manual_seed(13)
+    obs = tuple(torch.randn(B, len(i), od, generator=g) for (od, _), i in spec.groups)
+    plan = tuple(torch.rand(T, B, len(i), ad, generator=g) * 2 - 1 for (_, ad), i in spec.groups)
+    wm = WorldModel(model)
+    want = wm._rollout(obs, plan)  # eager
+    _equal(wm._rollout(obs, plan), want)  # captured, then replayed on the store
+    (graph,) = wm._graphs.values()
+    assert graph.casts and all(c.dtype == torch.bfloat16 for c in graph.casts.values())
+    short = tuple(p[:2] for p in plan)
+    _equal(wm._rollout(obs, short), tuple(x[:2] for x in want))  # another horizon
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.01)  # in place, as optimizer.step: read at the next request
+    _equal(wm._rollout(obs, plan), _eager(model, obs, plan))
+    counts = profiling.counters()
+    assert counts[CAST] == counts["rollout.graph_captures"] + 2 == 3  # one a graphed request
+    assert counts["rollout.graph_replays"] == 2 * T + 2
+
+
+def test_cast_store_holds_the_dense_kernels_and_biases():
+    from mfvae_tpu_torch.envs.mpe import make
+
+    cfg = load_config(str(EXAMPLES / "world_model.yaml"))
+    m = cfg.model
+    assert m.compute_dtype == "bfloat16"
+    # the recipe's depth at tiny widths: the store follows the layers
+    m.idx_features = m.obs_features = m.action_features = 8
+    m.det_features = 4
+    m.encoder_hidden, m.decoder_hidden = (8,) * len(m.encoder_hidden), (8,) * len(m.decoder_hidden)
+    env = make(cfg.env.name, device="cpu", num_good_agents=1, num_adversaries=2, num_obs=1)
+    model = MAVAE.from_config(m, build_spec(env), device="cpu")
+    mean = inference._MeanCall(model)
+    store = inference._cast_store(mean)
+    assert len(store) == 42
+    params = dict(mean.named_parameters())
+    left = {f"{name}.{leaf}" for name, mod in mean.named_modules()
+            if isinstance(mod, (LayerNorm, Embedding, StackedEmbedding)) for leaf, _ in mod.named_parameters()}
+    assert left and set(store) == set(params) - left
+    for name, (p, cast) in store.items():
+        assert name.endswith((".kernel", ".bias")) and p is params[name]
+        assert cast.dtype == torch.bfloat16 and cast.shape == p.shape
+
+
+def test_a_float32_model_has_no_cast_store(eager_graphs):
+    jspec, tspec, _, _, tmodel = build()
+    wm = WorldModel(tmodel)
+    _, tb = _batch(jspec, 15)
+    plan = _grouped_plan(tspec, 16)
+    want = wm._rollout(tb.obs, plan)
+    _equal(wm._rollout(tb.obs, plan), want)
+    (graph,) = wm._graphs.values()
+    assert graph.casts == {}
+    assert profiling.counters() == {"rollout.eager_steps": T, "rollout.graph_captures": 1, "rollout.graph_replays": T}
 
 
 def test_agent_id_buffers_stay_out_of_the_state_dict():
