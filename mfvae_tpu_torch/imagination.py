@@ -41,6 +41,16 @@ log-probs and entropies only; with continuous ones the reparameterized
 actions also flow through the world model (``WorldModel._predict``, which
 detaches its parameters) into the imagined states.  Distillation's
 visitation rollout and every teacher run under ``torch.no_grad()``.
+
+Tracing (``utils/profiling.py``): the span ``imagine.step`` holds each
+world-model step of ``ImaginationRollout`` and of the teachers' closed
+loop (``_imagine``): its ``WorldModel._predict`` and the refeed of the
+predicted state.  Each such step counts ``imagine.steps`` once and
+``imagine.rows`` by its batch rows; each teacher call counts
+``teacher.calls``.  A distillation update is the span
+``behavior.update``, holding ``distill.visit`` (the visitation rollout),
+``distill.teacher`` (the labels) and ``distill.fit`` (the policy's
+forward, the cross-entropy and the Adam step).
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from torch import nn
 from mfvae_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
 from mfvae_tpu_torch.models.mavae import AgentSpec, GroupedBatch
 from mfvae_tpu_torch.training.trainer import make_action_sampler, stacked_to_grouped
+from mfvae_tpu_torch.utils.profiling import count, span
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -285,8 +296,10 @@ class ImaginationRollout:
                 ent = gaussian_entropy(log_std)
             others = noise.others[t]
             full = torch.cat([acts_p.to(others.dtype), others[:, self.p:]], dim=1)  # [B, A(, d)]
-            ns, rw = self.wm._predict(GroupedBatch(obs=carry, actions=self.group_actions(full)))
-            carry = self.wm._state_to_grouped(ns)
+            with span("imagine.step"):
+                ns, rw = self.wm._predict(GroupedBatch(obs=carry, actions=self.group_actions(full)))
+                carry = self.wm._state_to_grouped(ns)
+            _count_step(ns)
             states.append(ns)
             rewards.append(rw)
             logps.append(logp)
@@ -516,14 +529,22 @@ def make_actor_critic_trainer(
 
 
 # ----------------------------------------------------------------- teachers
+def _count_step(ns: torch.Tensor) -> None:
+    """One imagined world-model step of ``ns.shape[0]`` rows."""
+    count("imagine.steps")
+    count("imagine.rows", ns.shape[0])
+
+
 def _imagine(wm, group_actions, obs_g, full_plan):
     """Closed-loop imagination of joint plans [H, B, A] from per-group obs
     [B, A_g, od]: (states [H, B, Σobs], rewards [H, B, A])."""
     states, rewards = [], []
     carry = tuple(obs_g)
     for acts_t in full_plan:
-        ns, rw = wm._predict(GroupedBatch(obs=carry, actions=group_actions(acts_t)))
-        carry = wm._state_to_grouped(ns)
+        with span("imagine.step"):
+            ns, rw = wm._predict(GroupedBatch(obs=carry, actions=group_actions(acts_t)))
+            carry = wm._state_to_grouped(ns)
+        _count_step(ns)
         states.append(ns)
         rewards.append(rw)
     return torch.stack(states), torch.stack(rewards)
@@ -581,6 +602,7 @@ class CEMTeacher:
     def __call__(self, obs_g, generator: Optional[torch.Generator] = None,
                  noise: Optional[CEMTeacherNoise] = None):
         s, h, n, p, k = obs_g[0].shape[0], self.horizon, self.n, self.p, self.k
+        count("teacher.calls")
         if noise is None:
             noise = self.draw_noise(generator, s)
         obs_t = _tile(obs_g, n)
@@ -677,6 +699,7 @@ class EnumeratedTeacher:
     def __call__(self, obs_g, generator: Optional[torch.Generator] = None,
                  noise: Optional[EnumeratedNoise] = None):
         s, m, k, p = obs_g[0].shape[0], self.m, self.k, self.p
+        count("teacher.calls")
         if noise is None:
             noise = self.draw_noise(generator, s)
         first = noise.first.repeat_interleave(k, dim=0)  # [S·M·K, A]
@@ -735,7 +758,9 @@ def make_distillation_trainer(
       3. descends the cross-entropy of the policy's logits to the labels.
 
     Returns ``(init_fn, update_fn)`` with the REINFORCE trainer's
-    surface; ``noise`` is a ``DistillNoise``."""
+    surface; ``noise`` is a ``DistillNoise``.  An update is the span
+    ``behavior.update`` around ``distill.visit``, ``distill.teacher`` and
+    ``distill.fit`` (module docstring)."""
     if target_mode not in ("argmax", "soft"):
         raise ValueError(f"unknown target_mode {target_mode!r}")
     if teacher_mode not in ("cem", "enumerated"):
@@ -758,28 +783,32 @@ def make_distillation_trainer(
 
     def update_fn(params, opt, obs_starts_g, generator: Optional[torch.Generator] = None,
                   noise: Optional[DistillNoise] = None):
-        s = obs_starts_g[0].shape[0]
-        if noise is None:
-            noise = DistillNoise(rollout.draw_noise(generator, s),
-                                 teacher.draw_noise(generator, s * (1 + visit_steps)))
-        with torch.no_grad():
-            states, *_ = rollout(params, obs_starts_g, noise=noise.visit)
-            visited_g = wm._state_to_grouped(states.reshape(visit_steps * s, -1))
-            all_obs_g = tuple(torch.cat([o0, ov], dim=0) for o0, ov in zip(obs_starts_g, visited_g))
-            targets = teacher(all_obs_g, noise=noise.teacher)  # [B, P] labels or [B, P, K]
-            hard = targets if target_mode == "argmax" else torch.argmax(targets, dim=-1)
-        logits = params(obs_fn(all_obs_g))  # [B, P, K]
-        logp = torch.log_softmax(logits, dim=-1)
-        if target_mode == "argmax":
-            nll = -logp.gather(-1, targets.long().unsqueeze(-1)).squeeze(-1)
-        else:
-            nll = -torch.sum(targets * logp, dim=-1)  # [B, P]
-        loss = torch.mean(nll)
-        _adam_step(opt, loss)
-        with torch.no_grad():
-            agree = torch.mean((torch.argmax(logits, dim=-1) == hard).to(torch.float32))
-            ent = -torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))
-        return {"bc_loss": loss.detach(), "teacher_agree": agree, "entropy": ent}
+        with span("behavior.update"):
+            s = obs_starts_g[0].shape[0]
+            if noise is None:
+                noise = DistillNoise(rollout.draw_noise(generator, s),
+                                     teacher.draw_noise(generator, s * (1 + visit_steps)))
+            with torch.no_grad():
+                with span("distill.visit"):
+                    states, *_ = rollout(params, obs_starts_g, noise=noise.visit)
+                    visited_g = wm._state_to_grouped(states.reshape(visit_steps * s, -1))
+                    all_obs_g = tuple(torch.cat([o0, ov], dim=0) for o0, ov in zip(obs_starts_g, visited_g))
+                with span("distill.teacher"):
+                    targets = teacher(all_obs_g, noise=noise.teacher)  # [B, P] labels or [B, P, K]
+                    hard = targets if target_mode == "argmax" else torch.argmax(targets, dim=-1)
+            with span("distill.fit"):
+                logits = params(obs_fn(all_obs_g))  # [B, P, K]
+                logp = torch.log_softmax(logits, dim=-1)
+                if target_mode == "argmax":
+                    nll = -logp.gather(-1, targets.long().unsqueeze(-1)).squeeze(-1)
+                else:
+                    nll = -torch.sum(targets * logp, dim=-1)  # [B, P]
+                loss = torch.mean(nll)
+                _adam_step(opt, loss)
+            with torch.no_grad():
+                agree = torch.mean((torch.argmax(logits, dim=-1) == hard).to(torch.float32))
+                ent = -torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))
+            return {"bc_loss": loss.detach(), "teacher_agree": agree, "entropy": ent}
 
     return init_fn, update_fn
 

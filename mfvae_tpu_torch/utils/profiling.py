@@ -24,7 +24,14 @@
   graph) or ``rollout.eager_steps`` (a step run eagerly), its captures
   as ``rollout.graph_captures`` and the refreshes of a graph's cast store
   as ``rollout.cast_refreshes`` (one a graphed request of a bf16 model):
-  replays over all steps is the graphs' hit share.
+  replays over all steps is the graphs' hit share.  Imagination
+  (``imagination.py``) counts its world-model steps as ``imagine.steps``
+  (one a ``WorldModel._predict`` of a policy rollout or of a teacher's
+  closed loop), the rows those steps were given as ``imagine.rows``, and
+  the teachers' calls as ``teacher.calls``; its spans are
+  ``imagine.step`` (a step's ``_predict`` and refeed) and, a distillation
+  update, ``behavior.update`` around ``distill.visit``,
+  ``distill.teacher`` and ``distill.fit``.
 """
 
 from __future__ import annotations

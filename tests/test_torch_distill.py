@@ -172,3 +172,61 @@ def test_distillation_with_its_own_draws_trains():
         m = update_fn(params, opt, tobs, g)
         assert all(np.isfinite(float(v)) for v in m.values()), m
     assert all(p.grad is None for p in s.twm.model.parameters())
+
+
+# ---------------------------------------------------------- spans, counters
+V, S = 2, 3  # visit steps and starts of the traced updates
+TRACED = {
+    "enumerated": dict(teacher_mode="enumerated", m_rollouts=M),
+    "cem": dict(teacher_mode="cem", n_candidates=NC, cem_iters=2, elite_frac=0.25),
+}
+
+
+def _one_update(case):
+    s = Setup()
+    init_fn, update_fn = timag.make_distillation_trainer(s.twm, s.tenv, s.tspec, PLAN, horizon=H, visit_steps=V,
+                                                         hidden=(16,), **TRACED[case])
+    g = torch.Generator().manual_seed(13)
+    params, opt = init_fn(g)
+    _, tobs = starts(s, S, 14)
+    return lambda: update_fn(params, opt, tobs, g)
+
+
+@pytest.mark.parametrize("case", sorted(TRACED))
+def test_a_distill_update_counts_its_steps_rows_and_teacher_calls(case):
+    """``imagine.steps``: V visit steps and H a teacher round (2 CEM
+    rounds); ``imagine.rows``: S a visit step and the teacher's S·(1+V)
+    states times its candidates (M·K, or N) a teacher step;
+    ``teacher.calls``: one."""
+    from mfvae_tpu_torch.utils import profiling
+
+    update = _one_update(case)
+    before = profiling.counters()
+    update()
+    after = profiling.counters()
+    got = {k: after.get(k, 0) - before.get(k, 0) for k in ("imagine.steps", "imagine.rows", "teacher.calls")}
+    rounds, candidates = (1, M * K) if case == "enumerated" else (2, NC)
+    assert got == {"imagine.steps": V + rounds * H, "imagine.rows": S * V + rounds * H * S * (1 + V) * candidates,
+                   "teacher.calls": 1}
+
+
+def test_a_distill_update_holds_its_spans_under_the_profiler():
+    """One ``mfvae.behavior.update`` around one each of ``distill.visit``,
+    ``distill.teacher`` and ``distill.fit``, in that order; V
+    ``imagine.step`` spans in the visit and H in the teacher."""
+    from torch.profiler import ProfilerActivity, profile
+
+    update = _one_update("enumerated")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        update()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[len("mfvae."):]) for e in prof.events()
+                   if e.name.startswith("mfvae."))
+    named = lambda n: [(lo, hi) for lo, hi, name in spans if name == n]  # noqa: E731
+    (outer,) = named("behavior.update")
+    (visit,), (teach,), (fit,) = named("distill.visit"), named("distill.teacher"), named("distill.fit")
+    assert outer[0] <= visit[0] <= visit[1] <= teach[0] <= teach[1] <= fit[0] <= fit[1] <= outer[1]
+    steps = named("imagine.step")
+    assert sum(visit[0] <= lo and hi <= visit[1] for lo, hi in steps) == V
+    assert sum(teach[0] <= lo and hi <= teach[1] for lo, hi in steps) == H
+    assert len(steps) == V + H
+
