@@ -28,7 +28,11 @@ FLOPs, with the same values and gradients.
 ``lookup_grad.MAX_BINS`` rows a stack, the backward of kernel K4
 (``ops/lookup_grad.py``): the same values, the table gradient's f32 sums in
 another fixed order.  Lookups of ids read from data (``Embedding.take``)
-and wider stacks keep advanced indexing's backward.
+and wider stacks keep advanced indexing's backward.  A ``LayerNorm`` built
+with ``kernels`` (an MLP's, through ``MLP`` / ``StackedMLP(kernels=...)``)
+runs kernel K5 (``ops/layer_norm.py``), forward and backward, on a CUDA
+tensor: the same formula, its f32 sums in another fixed order; on a CPU
+tensor it runs the same eager ops as without.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mfvae_tpu_torch.ops import lookup_grad
+from mfvae_tpu_torch.ops import layer_norm, lookup_grad
 
 # the stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -89,31 +93,31 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` over the last axis, params ``scale`` (ones) and
-    ``bias`` (zeros) of shape [features]."""
+    ``bias`` (zeros) of shape [features]; with ``kernels``, kernel K5 on a
+    CUDA tensor."""
 
-    EPSILON = 1e-6
+    EPSILON = layer_norm.EPSILON
 
-    def __init__(self, features: int, dtype=torch.float32, device=None):
+    def __init__(self, features: int, dtype=torch.float32, device=None, kernels: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.kernels = kernels
         self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device))
 
     def forward(self, x):
-        x = x.to(torch.float32)
-        mean = torch.mean(x, dim=-1, keepdim=True)
-        var = torch.clamp(torch.mean(x * x, dim=-1, keepdim=True) - mean * mean, min=0.0)
-        y = (x - mean) * (torch.rsqrt(var + self.EPSILON) * self.scale)
-        return (y + self.bias).to(self.dtype)
+        if self.kernels:
+            return layer_norm.layer_norm(x, self.scale, self.bias, self.dtype)
+        return layer_norm._layer_norm_plain(x, self.scale, self.bias, self.dtype)
 
 
 class MLP(nn.Module):
     """ReLU MLP: hidden widths ``fc0..``, then a linear head ``out``; with
-    ``layernorm``, a LayerNorm before each of them."""
+    ``layernorm``, a LayerNorm before each of them (K5's with ``kernels``)."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
                  dtype=torch.float32, device=None, generator=None, layernorm: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, kernels: bool = False):
         super().__init__()
         self.n_hidden = len(hidden)
         self.layernorm = layernorm
@@ -121,10 +125,10 @@ class MLP(nn.Module):
         widths = [in_dim, *hidden]
         for i, h in enumerate(hidden):
             if layernorm:
-                setattr(self, f"ln{i}", LayerNorm(widths[i], dtype, device))
+                setattr(self, f"ln{i}", LayerNorm(widths[i], dtype, device, kernels))
             setattr(self, f"fc{i}", Dense(widths[i], h, dtype, device, generator))
         if layernorm:
-            self.ln_out = LayerNorm(widths[-1], dtype, device)
+            self.ln_out = LayerNorm(widths[-1], dtype, device, kernels)
         self.out = Dense(widths[-1], out_dim, dtype, device, generator)
 
     def forward(self, x):
@@ -199,11 +203,12 @@ class StackedDense(nn.Module):
 class StackedMLP(nn.Module):
     """ReLU MLP over [B, A, in] with independent per-A parameters.  Its
     LayerNorms (``layernorm``) normalize the last axis with one [D] scale
-    and bias shared by every stack entry, as flax's do."""
+    and bias shared by every stack entry, as flax's do (K5's with
+    ``kernels``)."""
 
     def __init__(self, stack: int, in_dim: int, hidden: Sequence[int], out_dim: int,
                  dtype=torch.float32, device=None, generator=None, layernorm: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, kernels: bool = False):
         super().__init__()
         self.n_hidden = len(hidden)
         self.layernorm = layernorm
@@ -211,10 +216,10 @@ class StackedMLP(nn.Module):
         widths = [in_dim, *hidden]
         for i, h in enumerate(hidden):
             if layernorm:
-                setattr(self, f"ln{i}", LayerNorm(widths[i], dtype, device))
+                setattr(self, f"ln{i}", LayerNorm(widths[i], dtype, device, kernels))
             setattr(self, f"fc{i}", StackedDense(stack, widths[i], h, dtype, device, generator))
         if layernorm:
-            self.ln_out = LayerNorm(widths[-1], dtype, device)
+            self.ln_out = LayerNorm(widths[-1], dtype, device, kernels)
         self.out = StackedDense(stack, widths[-1], out_dim, dtype, device, generator)
 
     def forward(self, x):

@@ -255,19 +255,20 @@ class MAVAE(nn.Module):
         if self.state_skip:
             dec_in += sum_obs
         hidden = tuple(cfg.decoder_hidden)
-        ln = cfg.decoder_layernorm
+        # the decoders' LayerNorms run K5 on the kernel route
+        dkw = dict(rkw, layernorm=cfg.decoder_layernorm, kernels=cfg.use_pallas)
         reward_out = n * cfg.reward_bins if self.twohot else n
         if self.fused_decoders:
             # state + reward decoders share hidden widths: one two-stack trunk
-            self.decoder_trunk = StackedMLP(2, dec_in, hidden[:-1], hidden[-1], layernorm=ln, **rkw)
+            self.decoder_trunk = StackedMLP(2, dec_in, hidden[:-1], hidden[-1], **dkw)
             self.state_head = Dense(hidden[-1], sum_obs, **kw)
             self.reward_head = Dense(hidden[-1], reward_out, **kw)
         else:
-            self.state_decoder = MLP(dec_in, hidden, sum_obs, layernorm=ln, **rkw)
+            self.state_decoder = MLP(dec_in, hidden, sum_obs, **dkw)
             r_in = dec_in
             if self.pred_state_reward:
                 r_in = sum_obs + n * af + (sum_obs if self._needs_base else 0)
-            self.reward_decoder = MLP(r_in, hidden, reward_out, layernorm=ln, **rkw)
+            self.reward_decoder = MLP(r_in, hidden, reward_out, **dkw)
         if not self.twohot:
             # PopArt output head: all-ones kernel under 'popart', lecun
             # otherwise; the two-hot head has none (as the JAX tree)

@@ -19,7 +19,9 @@
   copy of them, ``reset_counters()`` clears them.  The kernels K1-K3w
   (``ops/fused_elbo.py``) count their launches as ``k1.launches``,
   ``k2.launches``, ``k3.launches`` and ``k3w.launches``, K4
-  (``ops/lookup_grad.py``) as ``k4.launches``; ``WorldModel`` (``inference.py``)
+  (``ops/lookup_grad.py``) as ``k4.launches``, K5 (``ops/layer_norm.py``)
+  as ``k5.launches`` (one a forward launch, one a backward call; its
+  launches are the span ``k5``); ``WorldModel`` (``inference.py``)
   its rollout steps as ``rollout.graph_replays`` (a step served by a CUDA
   graph) or ``rollout.eager_steps`` (a step run eagerly), its captures
   as ``rollout.graph_captures`` and the refreshes of a graph's cast store

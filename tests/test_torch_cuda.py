@@ -25,6 +25,24 @@ on the CPU), two calls bit-equal; its launches over a tag_wm train step
 (4), an unroll step (32) and a rollout (0); no ``indexing_backward_kernel``
 in a profiled train step.
 
+K5 (``ops/layer_norm.py``), flax's LayerNorm, against its plain version at
+the main path's shapes (D 15,900, 1,024, 256 and 64 over 256 and 4,096
+rows, and the distill cell's [15,360, 15,900] forward) in bf16 and f32:
+y within one unit of y's type in the last place (2^-7 of |y| in bf16,
+1e-5 in f32: the statistics' f32 sums run in another order) plus 1e-5;
+the saved statistics within 1e-5; dx against the plain statement of the
+backward on the kernel's own statistics within the same units plus 1e-5
+of the largest |dx|; dscale and dbias within 1e-5 of the sum of the
+magnitudes each adds (f32 sums in another order); every output of two
+calls bit-equal; a graph-captured forward replaying the eager one bit for
+bit; misaligned and odd widths; dx at a decoder-like mix of column scales
+(g or scale 1e-3 smaller over ranges, some past an f32 block's 8,192
+register columns), each range within the same units of its own largest
+|dx| of float64; the launch geometry the source picks (values an access,
+threads a row, the backward's grid); the routed layer in a model against the
+plain one (one train step, fused and unfused decoders), and 24 launches
+(12 forward, 12 backward) in one b4,096 train step of tag_wm's model.
+
 ``WorldModel``'s rollout step graphs on a model of the tag_wm widths
 (simple_tag 30/10/20, ``examples/world_model.yaml``, bf16), discrete and
 continuous: the graphed requests against the eager loop of the same
@@ -35,6 +53,7 @@ step fewer than the eager one (its 42 weight casts a step are gone) and
 one ``rollout.cast`` span.
 """
 
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -45,6 +64,7 @@ from mfvae_tpu_torch.config import LossConfig, ModelConfig, TrainConfig, load_co
 from mfvae_tpu_torch.data.transitions import VaeBatch
 from mfvae_tpu_torch.models.mavae import MAVAE, AgentSpec, GroupedBatch
 from mfvae_tpu_torch.ops import fused_elbo as ops
+from mfvae_tpu_torch.ops import layer_norm as ln
 from mfvae_tpu_torch.ops import lookup_grad as lg
 from mfvae_tpu_torch.training.trainer import create_train_state, make_train_step
 from mfvae_tpu_torch.utils import profiling
@@ -585,7 +605,9 @@ def _tag_batch(spec, dev, b, *window):
 def test_k4_launches_over_a_train_step_an_unroll_step_and_a_rollout(dev):
     """tag_wm (simple_tag 30/10/20, model.use_pallas): a train step runs K4
     once a group for the agent-index embedding and once a group for the
-    actions, 4; an unroll step of W = 8 32; a rollout (no backward) none."""
+    actions, 4; an unroll step of W = 8 32; a rollout (no backward) none.
+    K5 runs once forward and once backward in each of the decoders' 12
+    LayerNorms a forward: 24 a train step, 192 an unroll step."""
     from mfvae_tpu_torch.training.unroll import make_unroll_train_step
 
     model = _tag_world_model(dev, use_pallas=True)
@@ -593,11 +615,13 @@ def test_k4_launches_over_a_train_step_an_unroll_step_and_a_rollout(dev):
     state = create_train_state(model, TrainConfig())
     profiling.reset_counters()
     make_train_step(loss, use_pallas=True)(state, _tag_batch(spec, dev, 64), torch.Generator(device=dev).manual_seed(1))
-    assert profiling.counters() == {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2, "k4.launches": 4}
+    assert profiling.counters() == {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2, "k4.launches": 4,
+                                    "k5.launches": 24}
     profiling.reset_counters()
     make_unroll_train_step(spec, loss, 8, use_pallas=True)(state, _tag_batch(spec, dev, 64, 8),
                                                            torch.Generator(device=dev).manual_seed(2))
-    assert profiling.counters() == {"k1.launches": 8, "k2.launches": 8, "k3w.launches": 2, "k4.launches": 32}
+    assert profiling.counters() == {"k1.launches": 8, "k2.launches": 8, "k3w.launches": 2, "k4.launches": 32,
+                                    "k5.launches": 192}
     wm = inference.WorldModel(model)
     obs, plan = _request(model, dev, 5)
     profiling.reset_counters()
@@ -622,3 +646,249 @@ def test_a_profiled_train_step_runs_k4_and_no_indexing_backward(dev):
     assert not [n for n in on_device if "indexing_backward" in n]
     assert sum("lookup_grad_kernel" in n for n in on_device) == 4
     assert [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA].count("mfvae.k4") == 4
+
+
+# ------------------------------------------------------------------- K5
+K5_ULP = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def _k5_inputs(dev, rows, d, dtype, seed=0):
+    x = (3 * _randn(dev, rows, d, seed=seed) + 0.5).to(dtype)
+    scale = 1 + 0.1 * _randn(dev, d, seed=seed + 1)
+    bias = 0.05 * _randn(dev, d, seed=seed + 2)
+    g = _randn(dev, rows, d, seed=seed + 3).to(dtype)
+    return x, scale, bias, g
+
+
+def _k5_forward_check(x, scale, bias, dtype):
+    """K5's forward against the plain version; returns its stats."""
+    y, stats = ln._layer_norm_fwd_cuda(x, scale, bias, dtype, save=True)
+    want = ln._layer_norm_plain(x, scale, bias, dtype)
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), want.float(), rtol=K5_ULP[dtype], atol=1e-5)
+    torch.testing.assert_close(stats, ln._layer_norm_stats_plain(x), rtol=1e-5, atol=1e-6)
+    y2, stats2 = ln._layer_norm_fwd_cuda(x, scale, bias, dtype, save=True)
+    assert torch.equal(y2, y) and torch.equal(stats2, stats)
+    y3, none = ln._layer_norm_fwd_cuda(x, scale, bias, dtype, save=False)
+    assert none is None and torch.equal(y3, y)
+    return stats
+
+
+def _k5_backward_check(x, g, scale, stats):
+    got = ln._layer_norm_bwd_cuda(x, g, scale, stats)
+    want = ln._layer_norm_bwd_plain(x, g, scale, stats)
+    dx, dx_p = got[0], want[0]
+    assert dx.dtype == x.dtype
+    torch.testing.assert_close(dx.float(), dx_p.float(), rtol=K5_ULP[x.dtype],
+                               atol=1e-5 * float(dx_p.float().abs().max()))
+    xhat = (x.float() - stats[:, :1]) * stats[:, 1:].abs()
+    for got_sum, want_sum, terms in ((got[1], want[1], g.float() * xhat), (got[2], want[2], g.float())):
+        assert bool(((got_sum - want_sum).abs() <= 1e-5 * terms.abs().sum(0)).all())
+    again = ln._layer_norm_bwd_cuda(x, g, scale, stats)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("rows", [256, 4096])
+@pytest.mark.parametrize("d", [15900, 1024, 256, 64])
+def test_layer_norm(dev, d, rows, dtype):
+    x, scale, bias, g = _k5_inputs(dev, rows, d, dtype)
+    assert ln._geometry(x, g, scale)[0] == 4
+    profiling.reset_counters()
+    stats = _k5_forward_check(x, scale, bias, dtype)
+    _k5_backward_check(x, g, scale, stats)
+    assert profiling.counters() == {"k5.launches": 3 + 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_layer_norm_distill_forward(dev, dtype):
+    """The distill cell's ln0: [15,360, 15,900], forward only (no_grad)."""
+    x, scale, bias, _ = _k5_inputs(dev, 15360, 15900, dtype, seed=4)
+    _k5_forward_check(x, scale, bias, dtype)
+
+
+@pytest.mark.parametrize("d", [15900, 1024, 1025, 7, 1])
+def test_layer_norm_misaligned_and_odd_widths(dev, d):
+    """Bases one value off their 8 bytes, widths no multiple of 4 and rows
+    wider than a warp's registers: one value an access."""
+    x, scale, bias, g = _k5_inputs(dev, 37, d + 1, torch.bfloat16, seed=6)
+    xv, gv = x.reshape(-1)[1:1 + 37 * d].view(37, d), g.reshape(-1)[1:1 + 37 * d].view(37, d)
+    scale, bias = scale[:d].contiguous(), bias[:d].contiguous()
+    assert ln._geometry(xv, gv, scale)[0] == 1
+    stats = _k5_forward_check(xv, scale, bias, torch.bfloat16)
+    _k5_backward_check(xv, gv, scale, stats)
+
+
+def test_layer_norm_wider_than_the_registers(dev):
+    """An f32 row past the block's share (512 · 16 values): the columns
+    beyond are read again, and their column sums kept in the partials."""
+    x, scale, bias, g = _k5_inputs(dev, 300, 20000, torch.float32, seed=8)
+    stats = _k5_forward_check(x, scale, bias, torch.float32)
+    _k5_backward_check(x, g, scale, stats)
+
+
+@pytest.mark.parametrize("d,dtypes,offsets,want", [
+    (15900, ("bf16", "bf16"), (0, 0, 0), (4, 512)),  # ln0 in bf16: 8-byte accesses, the block a row
+    (15900, ("f32", "bf16"), (0, 0, 0), (4, 512)),  # f32 in, bf16 out
+    (1024, ("bf16", "bf16"), (0, 0, 0), (4, 32)),  # the widest bf16 row a warp holds
+    (1024, ("f32", "f32"), (0, 0, 0), (4, 64)),  # f32: two warps
+    (1025, ("bf16", "bf16"), (0, 0, 0), (1, 64)),
+    (64, ("bf16", "bf16"), (0, 0, 0), (4, 32)),
+    (64, ("bf16", "bf16"), (1, 0, 0), (1, 32)),  # x off its 8 bytes: one value an access
+    (64, ("bf16", "bf16"), (0, 0, 2), (1, 32)),  # scale off its 16 bytes
+    (7, ("f32", "f32"), (0, 0, 0), (1, 32)),
+    (1, ("f32", "f32"), (0, 0, 0), (1, 32)),
+    (40000, ("bf16", "bf16"), (0, 0, 0), (4, 512)),  # past the block's share
+])
+def test_layer_norm_geometry(dev, d, dtypes, offsets, want):
+    """How layer_norm.cu launches K5 (its geometry query): the values an
+    access from the width and the bases, the threads a row from the width
+    and the input's type."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    x, other, scale = (torch.zeros(3 * d + 8, device=dev, dtype=t)[o:o + 3 * d]
+                       for t, o in zip((types[dtypes[0]], types[dtypes[1]], torch.float32), offsets))
+    assert tuple(ln._geometry(x.view(3, d), other.view(3, d), scale[:d])[:2]) == want
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 15900), (4096, 2048), (4096, 1024), (256, 1024), (1, 15900), (5, 64),
+                                    (15360, 15900), (133, 15900), (4099, 64)])
+def test_layer_norm_backward_grid_covers_every_row_once(dev, rows, d):
+    """The backward's grid: at most one block an SM, each block a
+    contiguous range of rows, every row in one block and every block with
+    a row."""
+    x = torch.zeros(rows, d, device=dev, dtype=torch.bfloat16)
+    _, _, blocks, per_block = ln._geometry(x, x, torch.zeros(d, device=dev))
+    assert 1 <= blocks <= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert blocks * per_block >= rows > (blocks - 1) * per_block
+
+
+K5_SMALL = ((1920, 2560), (9000, 9600), (15000, 15900))  # g 1e-3 smaller there
+K5_SMALL_SCALE = (12000, 12500)  # scale 1e-3 smaller there
+K5_RANGES = ((0, 1920), (1920, 2560), (2560, 8192), (8192, 9000), (9000, 9600), (9600, 12000),
+             (12000, 12500), (12500, 15000), (15000, 15900))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_layer_norm_mixed_column_scales(dev, dtype):
+    """The decoder input mixes columns whose dx differ a thousandfold: g
+    (and, over one range, scale) 1e-3 smaller over column ranges, some past
+    the 8,192 an f32 block holds in registers.  dx within each range is
+    held against float64 (the backward's formula at K5's statistics) to its
+    tolerance of that range's largest |dx|, so an error confined to the
+    small columns or to one range does not hide under the large ones."""
+    x, scale, bias, g = _k5_inputs(dev, 256, 15900, torch.float32, seed=11)
+    for lo, hi in K5_SMALL:
+        g[:, lo:hi] *= 1e-3
+    lo, hi = K5_SMALL_SCALE
+    scale[lo:hi] *= 1e-3
+    x, g = x.to(dtype), g.to(dtype)
+    stats = _k5_forward_check(x, scale, bias, dtype)
+    dx, dscale, dbias = ln._layer_norm_bwd_cuda(x, g, scale, stats)
+    want = ln._layer_norm_bwd_plain(x.double(), g.double(), scale.double(), stats.double())
+    for lo, hi in K5_RANGES:
+        ref = want[0][:, lo:hi]
+        err = float((dx[:, lo:hi].double() - ref).abs().max() / ref.abs().max())
+        assert err <= K5_ULP[dtype], (lo, hi, err)
+    xhat = (x.double() - stats[:, :1].double()) * stats[:, 1:].double().abs()
+    for got_sum, want_sum, terms in ((dscale, want[1], g.double() * xhat), (dbias, want[2], g.double())):
+        assert bool(((got_sum.double() - want_sum).abs() <= 1e-5 * terms.abs().sum(0)).all())
+
+
+def test_layer_norm_through_the_layer(dev):
+    """``LayerNorm(kernels=True)`` on a fused trunk's [B, 2, D] view, a
+    bf16 input into an f32 layer (cast first) and no_grad: the plain
+    layer's values and autograd gradients, within the tolerances above."""
+    from mfvae_tpu_torch.models.layers import LayerNorm
+
+    for in_dtype, dtype in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)):
+        routed, plain = LayerNorm(1024, dtype, dev, kernels=True), LayerNorm(1024, dtype, dev)
+        with torch.no_grad():
+            for layer in (routed, plain):
+                layer.scale.copy_(1 + 0.1 * _randn(dev, 1024, seed=1))
+                layer.bias.copy_(0.05 * _randn(dev, 1024, seed=2))
+        flat = (3 * _randn(dev, 256, 1024, seed=3)).to(in_dtype)
+        g = _randn(dev, 256, 2, 1024, seed=4).to(dtype)
+        outs = []
+        for layer in (routed, plain):
+            x = flat.clone().requires_grad_()
+            y = layer(x[:, None, :].expand(256, 2, 1024))
+            outs.append((y, *torch.autograd.grad(y, (x, layer.scale, layer.bias), g)))
+        (y, dx, ds, db), (y_p, dx_p, ds_p, db_p) = outs
+        torch.testing.assert_close(y.float(), y_p.float(), rtol=K5_ULP[dtype], atol=1e-5)
+        # the expand's backward adds the two stacked rows' dx, each rounded
+        # to x's type: one unit of that type at the largest |dx|
+        torch.testing.assert_close(dx.float(), dx_p.float(), rtol=K5_ULP[in_dtype],
+                                   atol=K5_ULP[in_dtype] * float(dx_p.float().abs().max()))
+        torch.testing.assert_close(ds, ds_p, rtol=1e-4, atol=1e-4 * float(ds_p.abs().max()))
+        torch.testing.assert_close(db, db_p, rtol=1e-4, atol=1e-4 * float(db_p.abs().max()))
+        profiling.reset_counters()
+        with torch.no_grad():
+            assert torch.equal(routed(flat), y[:, 0])
+        assert profiling.counters() == {"k5.launches": 1}
+
+
+def test_layer_norm_replays_bit_equal_under_a_graph(dev):
+    x, scale, bias, _ = _k5_inputs(dev, 256, 15900, torch.bfloat16, seed=9)
+    x2 = _k5_inputs(dev, 256, 15900, torch.bfloat16, seed=10)[0]
+    with torch.no_grad():
+        eager, eager2 = ln.layer_norm(x, scale, bias, torch.bfloat16), ln.layer_norm(x2, scale, bias, torch.bfloat16)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ln.layer_norm(x, scale, bias, torch.bfloat16)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ln.layer_norm(x, scale, bias, torch.bfloat16)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, eager)
+        x.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, eager2)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_layer_norm_model_routes_agree_on_the_card(dev, fused):
+    """One train step of a tiny model with tag_wm's decoder recipe in f32
+    by the plain route and by the kernel route (K1-K5): the losses and the
+    parameters after it agree, as ``test_train_step_routes_agree_on_the_card``
+    holds them."""
+    agents = ("adversary_0", "adversary_1", "agent_0")
+    spec = AgentSpec.from_dicts(agents, {"adversary_0": 10, "adversary_1": 10, "agent_0": 6}, {a: 5 for a in agents})
+    cfg = ModelConfig(idx_features=8, obs_features=8, action_features=8, encoder_hidden=(16,),
+                      decoder_hidden=(32, 16, 8, 16, 32), det_features=8, residual_state=True, state_skip=True,
+                      decoder_layernorm=True, fused_decoders=fused, compute_dtype="float32")
+    batch = _tag_batch(spec, dev, 64)
+    init = MAVAE.from_config(cfg, spec, device=dev, generator=torch.Generator(device=dev).manual_seed(1)).state_dict()
+    results = []
+    for use_pallas in (False, True):
+        model = MAVAE.from_config(dataclasses.replace(cfg, use_pallas=use_pallas), spec, device=dev)
+        model.load_state_dict(init)
+        state = create_train_state(model, TrainConfig())
+        profiling.reset_counters()
+        state, out = make_train_step(LossConfig(), use_pallas=use_pallas)(
+            state, batch, torch.Generator(device=dev).manual_seed(2))
+        results.append((out, state.model.state_dict(), profiling.counters()))
+    (o1, p1, l1), (o2, p2, l2) = results
+    n_norms = 5 if fused else 12
+    assert l1 == {} and l2 == {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2, "k4.launches": 4,
+                               "k5.launches": 2 * n_norms}
+    for a, b in zip(o1, o2):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for name in p1:
+        torch.testing.assert_close(p1[name], p2[name], rtol=1e-4, atol=1e-5)
+
+
+def test_k5_launches_in_a_b4096_train_step(dev):
+    """One b4,096 train step of tag_wm's model (model.use_pallas): 12
+    forward launches and 12 backward calls."""
+    model = _tag_world_model(dev, use_pallas=True)
+    state = create_train_state(model, TrainConfig())
+    step = make_train_step(load_config(str(EXAMPLES / "world_model.yaml")).loss, use_pallas=True)
+    profiling.reset_counters()
+    step(state, _tag_batch(model.spec, dev, 4096), torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize(dev)
+    assert profiling.counters() == {"k1.launches": 1, "k2.launches": 1, "k3.launches": 2, "k4.launches": 4,
+                                    "k5.launches": 24}
